@@ -6,9 +6,9 @@
 Phases (any failure propagates and exits non-zero; nothing is caught):
 
 1. environment: torch, CUDA, nvcc and the card's name and power limit;
-2. build the CUDA kernels from ``ipcgen_tpu_torch/csrc`` and print the
-   seconds it took;
-3. kernel against its plain PyTorch version on the card, on a
+2. build the CUDA kernels from ``ipcgen_tpu_torch/csrc`` (one nvcc per
+   source, all at once) and print the seconds each took;
+3. pair kernel against its plain PyTorch version on the card, on a
    159,744-triangle synthetic room: 256 k coherent scan rays, 256 k
    incoherent rays (ray-sorted, as raycast_asset's "auto" does for them) and a set whose
    every subtile walks all blocks; same slot on >= 99.99 % of rays and t
@@ -32,6 +32,21 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    the nearer triangle, and such grazes stay under 0.1 % of the rays.  The
    kernel is also held against its plain version on those same inputs of
    each run.
+5. culled kernel against its plain version and the block-scan oracle, bit
+   for bit in t and slot: 256 k dense-32 rays in beam order (as the culled
+   scan casts them) on the 159,744-triangle room, and the 8,192-ray
+   cluttered room of tests/test_tpu_hardware.py:31-50; both times.
+6. the main path a third time, as a user selects the culled kernel: the
+   config tree ``PipelineConfig.from_dict`` with ``simulation.backend:
+   pallas`` and the BLK2GO profile, through ``S3DISSimulator`` and
+   ``run_auto_simulation`` on the same room.  It must launch the culled
+   kernel and not the pair kernel, give every frame points, write the
+   labeled PLY and pass the label check.  The run's own rays, cast again in
+   beam order, must give back every frame exactly; 80 whole 256-ray groups
+   (20,480 rays) of them must equal the oracle bit for bit in t, tri_id,
+   points and normals, and the kernel its plain version bit for bit.  Every
+   frame's point count must agree with the pair kernel's BLK2GO run (same
+   seed, so the same waypoints and rays) within 1 %.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Needs ``torch.cuda.is_available()``.
@@ -137,18 +152,13 @@ def kernel_vs_plain(p: dict, label: str, kernel_reps: int = 5,
                 same_slot=same_frac, rays=n_rays)
 
 
-def phase_kernel_check(device) -> dict:
+def phase_kernel_check(device, asset) -> dict:
     import torch
 
     from ipcgen_tpu_torch.models.lidar_intrinsics import Indoor8LineLidarIntrinsics
     from ipcgen_tpu_torch.ops.raycast_pairs import prepare_pairs
-    from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
     from ipcgen_tpu_torch.sim.scan import scan_rays
-    from ipcgen_tpu_torch.utils.synthetic import synthetic_room
 
-    v, t = synthetic_room(TRIANGLES_KERNEL_CHECK)
-    asset = build_scene_asset(v, t, device=device)
-    log(f"[kernel] room: {len(t)} triangles, {asset.num_blocks} blocks")
     comps = (asset.tri_data, asset.block_lo, asset.block_hi)
     o, d, _ = scan_rays(Indoor8LineLidarIntrinsics.create_dense_32line(),
                         room_poses(2, seed=1), None, device)
@@ -169,6 +179,87 @@ def phase_kernel_check(device) -> dict:
     out["walk_all_8k"] = kernel_vs_plain(p, "forced walk-all 8k",
                                          kernel_reps=2, plain_reps=1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Culled kernel against its plain version and the oracle
+# ---------------------------------------------------------------------------
+def culled_vs_plain(asset, o, d, t_max: float, label: str, oracle: bool = True,
+                    kernel_reps: int = 5) -> dict:
+    """The culled kernel, its plain version and (``oracle``) the block-scan
+    oracle on the same rays: t and slot bit for bit, and both times."""
+    import torch
+
+    from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.ops.raycast import raycast_brute_components
+    from ipcgen_tpu_torch.ops.raycast_culled import GROUP, raycast_culled_plain, t_init_for
+
+    o, d = o.contiguous(), d.contiguous()
+    args = (o, d, asset.tri_data, asset.block_lo, asset.block_hi,
+            asset.super_lo, asset.super_hi, asset.super_factor, t_init_for(t_max))
+    t_k, s_k = _kernels.raycast_culled_cuda(*args, group=GROUP)
+    t_p, s_p = raycast_culled_plain(*args, group=GROUP)
+    torch.cuda.synchronize()
+    pairs = [("plain", t_p, s_p)]
+    if oracle:
+        pairs.append(("oracle", *raycast_brute_components(
+            o, d, asset.tri_data, t_max, max_elems=1 << 24)))
+    res = dict(rays=int(o.shape[0]), hit=float((s_k >= 0).float().mean()))
+    for name, t_x, s_x in pairs:
+        res[f"{name}_slot_mismatch"] = int((s_k != s_x).sum())
+        res[f"{name}_t_mismatch"] = int((t_k != t_x).sum())
+    both = (s_k >= 0) & (s_p >= 0)
+    res["max_abs_err"] = float((t_k - t_p).abs()[both].max()) if both.any() else 0.0
+    res["ms"] = time_ms(lambda: _kernels.raycast_culled_cuda(*args, group=GROUP),
+                        kernel_reps)
+    res["plain_ms"] = time_ms(lambda: raycast_culled_plain(*args, group=GROUP), 1)
+    log(f"[culled] {label}: {res}")
+    for name, _, _ in pairs:
+        require(res[f"{name}_slot_mismatch"] == 0 and res[f"{name}_t_mismatch"] == 0,
+                f"{label}: culled kernel differs from the {name}: {res}")
+    return res
+
+
+def phase_culled_kernel_check(device, asset) -> dict:
+    import torch
+
+    from ipcgen_tpu_torch.models.lidar_intrinsics import Indoor8LineLidarIntrinsics
+    from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
+    from ipcgen_tpu_torch.sim.scan import scan_rays
+
+    o, d, _ = scan_rays(Indoor8LineLidarIntrinsics.create_dense_32line(),
+                        room_poses(2, seed=1), None, device, backend="culled")
+    out = {"dense32_beam_256k": culled_vs_plain(
+        asset, o, d, MAX_RANGE, "dense-32 256k beam order")}
+    verts, tris, origins, dirs = hardware_scene(8192)
+    room = build_scene_asset(verts, tris, device=device)
+    out["cluttered_8k"] = culled_vs_plain(
+        room, torch.from_numpy(origins).to(device), torch.from_numpy(dirs).to(device),
+        20.0, "cluttered room 8k (t_max 20)")
+    return out
+
+
+def hardware_scene(n: int):
+    """The cluttered room and rays of tests/test_tpu_hardware.py:31-50: a
+    4 x 3 x 2.5 m room with six boxes (seed 0), rays from the centre, the
+    last quarter from origins outside the room."""
+    from ipcgen_tpu.containers.mesh import TriMesh
+
+    rng = np.random.default_rng(0)
+    room = TriMesh.box(center=(2, 1.5, 1.25), size=(4, 3, 2.5), inward=True)
+    vs, ts, off = [room.vertices], [room.triangles], len(room.vertices)
+    for _ in range(6):
+        c = rng.uniform([0.6, 0.6, 0.2], [3.4, 2.4, 1.0])
+        b = TriMesh.box(center=tuple(c), size=tuple(rng.uniform(0.2, 0.8, 3)))
+        vs.append(b.vertices)
+        ts.append(b.triangles + off)
+        off += len(b.vertices)
+    origins = np.tile(np.array([2, 1.5, 1.0], np.float32), (n, 1))
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    origins[3 * n // 4:] = rng.uniform(-12, -6, (n // 4, 3)).astype(np.float32)
+    return (np.concatenate(vs).astype(np.float32),
+            np.concatenate(ts).astype(np.int32), origins, dirs)
 
 
 # ---------------------------------------------------------------------------
@@ -309,7 +400,7 @@ def check_own_rays(asset, intr, sc, tri_xyz, seed: int, device, n_tiles: int = 1
     return res, p
 
 
-def phase_main_path(device, work: Path, card: str) -> dict:
+def phase_main_path(device, work: Path, card: str):
     from ipcgen_tpu.containers.mesh import TriMesh
     from ipcgen_tpu_torch.ops import _kernels
     from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
@@ -349,8 +440,8 @@ def phase_main_path(device, work: Path, card: str) -> dict:
         rays = n_frames * intr.get_total_points_per_scan()
         log(f"[main] {profile}: {n_frames} frames, {rays} rays, "
             f"{sum(n_points)} points, {wall:.2f} s wall, launches {launches}")
-        require(all(v > 0 for v in launches.values()),
-                f"{profile}: a kernel was not launched: {launches}")
+        require(launches["raycast_pairs"] > 0 and launches["raycast_culled"] == 0,
+                f"{profile}: the pair kernel alone must run: {launches}")
         require(n_frames > 0 and min(n_points) > 0, f"{profile}: empty frame")
         ply = work / "out" / f"synth_{profile}" / "combined_pointcloud_with_label.ply"
         require(ply.is_file(), f"{profile}: labeled PLY missing")
@@ -368,8 +459,111 @@ def phase_main_path(device, work: Path, card: str) -> dict:
             kernel_reps=3, plain_reps=1)
         del pairs
         runs[profile] = dict(launches=launches, wall_s=wall, rays=rays,
-                             frames=n_frames, stages=stages, kernel=at_shape)
-    return runs
+                             frames=n_frames, points=n_points, stages=stages,
+                             kernel=at_shape)
+    culled = phase_culled_main_path(device, work, card, mesh_path, data_root,
+                                    asset, runs["blk2go"])
+    return runs, culled
+
+
+def phase_culled_main_path(device, work: Path, card: str, mesh_path: Path,
+                           data_root: Path, asset, pair_run: dict,
+                           n_groups: int = 80) -> dict:
+    """The BLK2GO run again, with the culled kernel selected through the
+    config tree, and its checks."""
+    import torch
+
+    from ipcgen_tpu.config import PipelineConfig
+    from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.ops.raycast import raycast_asset
+    from ipcgen_tpu_torch.ops.raycast_culled import GROUP
+    from ipcgen_tpu_torch.sim.scan import scan_rays
+    from ipcgen_tpu_torch.sim.simulator import S3DISSimulator
+    from ipcgen_tpu_torch.utils.device import sync
+
+    # What create_simulator_from_config does after loading the YAML (the
+    # card's host has no yaml).
+    tree = PipelineConfig.from_dict({
+        "simulation": {"backend": "pallas", "use_blk2go": True, "seed": 0},
+        "data": {"data_root": str(data_root), "area_name": "Area_1",
+                 "room_name": "office_1"},
+    })
+    for k in _kernels.LAUNCHES:
+        _kernels.LAUNCHES[k] = 0
+    t0 = time.time()
+    sim = S3DISSimulator(tree.simulator_config(), use_blk2go=tree.simulation.use_blk2go,
+                         use_dense_lidar=tree.simulation.use_dense_lidar, device=device)
+    out_dir = work / "out" / "synth_culled"
+    sc = sim.run_auto_simulation(str(mesh_path), num_waypoints=20,
+                                 output_dir=out_dir, scene_name="synth_culled")
+    sync(device)
+    wall = time.time() - t0
+    launches = dict(_kernels.LAUNCHES)
+    intr = sim.lidar_config
+    n_points = [len(f.points) for f in sc.frames]
+    rays = len(sc.frames) * intr.get_total_points_per_scan()
+    stages = {k: round(float(v), 4) for k, v in sorted(sc.profile.items())}
+    rate = rays / (stages["dispatch"] + stages["scan_exec"])
+    log(f"[culled-main] backend {sim.backend}: {len(sc.frames)} frames, {rays} rays, "
+        f"{sum(n_points)} points, {wall:.2f} s wall, launches {launches}")
+    log(f"[culled-main] stage seconds on {card}: {json.dumps(stages)}; "
+        f"{rate:.0f} rays/s over dispatch + scan_exec")
+    require(sim.backend == "culled", f"config backend pallas gave {sim.backend}")
+    require(launches["raycast_culled"] >= 1 and launches["raycast_pairs"] == 0,
+            f"culled run launches {launches}")
+    require(len(sc.frames) > 0 and min(n_points) > 0, "culled run: empty frame")
+    ply = out_dir / "combined_pointcloud_with_label.ply"
+    require(ply.is_file(), "culled run: labeled PLY missing")
+    label_agree = check_labels(ply, data_root)
+    log(f"[culled-main] labels agree with cKDTree 1-NN on {label_agree:.5f}")
+    require(label_agree >= 0.999, f"culled run: label agreement {label_agree}")
+
+    # The same seed and planner: the pair run scanned the same rays.
+    want = pair_run["points"]
+    frame_dev = max(abs(a - b) / b for a, b in zip(n_points, want))
+    total_dev = abs(sum(n_points) - sum(want)) / sum(want)
+    log(f"[culled-main] vs the pair kernel's BLK2GO run: {sum(n_points)} vs "
+        f"{sum(want)} points, max frame deviation {frame_dev:.2e}, total {total_dev:.2e}")
+    require(len(n_points) == len(want) and frame_dev <= 0.01 and total_dev <= 0.01,
+            f"culled vs pair run: {n_points} vs {want}")
+
+    # The run's own rays, cast again as the culled scan casts them.
+    o, d, keep = scan_rays(intr, sc.scan_poses,
+                           torch.Generator(device=device).manual_seed(0), device,
+                           backend="culled")
+    max_range = float(intr.max_range)
+    rk = raycast_asset(o, d, asset, backend="culled", t_max=max_range)
+    w = len(sc.frames)
+    mask = (rk.hit if keep is None else rk.hit & keep).view(w, -1).cpu().numpy()
+    pts = rk.points.view(w, -1, 3).cpu().numpy()
+    for i, frame in enumerate(sc.frames):
+        require(np.array_equal(pts[i][mask[i]], frame.points),
+                f"culled run: frame {i} not reproduced")
+    log(f"[culled-main] the run's {o.shape[0]} rays cast again reproduce all "
+        f"{w} frames exactly")
+
+    # Whole groups of the kernel's tiling, against the oracle bit for bit.
+    rng = np.random.default_rng(4)
+    groups = np.sort(rng.choice(o.shape[0] // GROUP, n_groups, replace=False))
+    idx = torch.from_numpy((groups[:, None] * GROUP + np.arange(GROUP)).reshape(-1)).to(device)
+    ro = raycast_asset(o[idx], d[idx], asset, backend="brute", t_max=max_range)
+    diff = {name: int((getattr(rk, name)[idx] != getattr(ro, name)).sum())
+            for name in ("t", "tri_id", "hit", "points", "normals")}
+    log(f"[culled-main] {idx.numel()} rays ({n_groups} groups) vs the oracle: "
+        f"elements that differ {diff}, hit {float(ro.hit.float().mean()):.4f}")
+    require(not any(diff.values()), f"culled run vs oracle: {diff}")
+    subset = culled_vs_plain(asset, o[idx], d[idx], max_range,
+                             f"culled main-path inputs ({idx.numel()} of "
+                             f"{o.shape[0]} rays; plain version on this subset)",
+                             oracle=False, kernel_reps=5)
+    full_ms = time_ms(lambda: _kernels.raycast_culled_cuda(
+        o, d, asset.tri_data, asset.block_lo, asset.block_hi, asset.super_lo,
+        asset.super_hi, asset.super_factor, max_range, group=GROUP), 3)
+    log(f"[culled-main] culled kernel over all {o.shape[0]} rays of the run: "
+        f"{full_ms:.3f} ms")
+    return dict(launches=launches, wall_s=wall, rays=rays, frames=w, stages=stages,
+                rays_per_s=rate, label_agree=label_agree, oracle_rays=int(idx.numel()),
+                kernel=subset, full_scan_rays=int(o.shape[0]), full_scan_ms=full_ms)
 
 
 def main() -> int:
@@ -391,12 +585,22 @@ def main() -> int:
 
     t0 = time.time()
     _kernels.build()
-    log(f"[build] raycast_pairs kernel built and loaded in {time.time() - t0:.2f} s")
+    log(f"[build] {len(_kernels.SOURCES)} kernels built (one nvcc each, in "
+        f"parallel) and loaded in {time.time() - t0:.2f} s; seconds per kernel "
+        f"{json.dumps({k: round(v, 2) for k, v in _kernels.BUILD_SECONDS.items()})}")
 
-    checks = phase_kernel_check(device)
+    from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
+    from ipcgen_tpu_torch.utils.synthetic import synthetic_room
+
+    v, t = synthetic_room(TRIANGLES_KERNEL_CHECK)
+    asset = build_scene_asset(v, t, device=device)
+    log(f"[kernel] room: {len(t)} triangles, {asset.num_blocks} blocks")
+    checks = phase_kernel_check(device, asset)
+    culled_checks = phase_culled_kernel_check(device, asset)
+    del asset
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        runs = phase_main_path(device, work, card)
+        runs, culled = phase_main_path(device, work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -417,6 +621,25 @@ def main() -> int:
             k: {"rays": r["kernel"]["rays"], "ms": r["kernel"]["ms"],
                 "plain_ms": r["kernel"]["plain_ms"]}
             for k, r in runs.items()},
+    }, {
+        "name": "raycast_culled_kernel",
+        "route": "cuda",
+        "source": "ipcgen_tpu_torch/csrc/raycast_culled.cu",
+        "replaces": "ipcgen_tpu/ops/raycast_pallas.py:41",
+        "launches": culled["launches"]["raycast_culled"],
+        "max_abs_err": max(culled["kernel"]["max_abs_err"],
+                           *(c["max_abs_err"] for c in culled_checks.values())),
+        "ms": culled["kernel"]["ms"],
+        "plain_ms": culled["kernel"]["plain_ms"],
+        "main_path_inputs": {
+            "blk2go_culled": {"rays": culled["kernel"]["rays"],
+                              "ms": culled["kernel"]["ms"],
+                              "plain_ms": culled["kernel"]["plain_ms"],
+                              "full_scan_rays": culled["full_scan_rays"],
+                              "full_scan_ms": culled["full_scan_ms"]}},
+        "kernel_check_inputs": {
+            k: {"rays": c["rays"], "ms": c["ms"], "plain_ms": c["plain_ms"]}
+            for k, c in culled_checks.items()},
     }]}
     print(card)
     print(json.dumps(record))

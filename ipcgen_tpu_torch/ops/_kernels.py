@@ -1,11 +1,14 @@
 """Build, bind and launch the hand-written CUDA kernels.
 
-The sources in ``ipcgen_tpu_torch/csrc`` are compiled on first use with
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
-into ``build/ipcgen_tpu_torch/`` at the repository root (the file name
-carries a hash of the source, so an edited kernel is rebuilt), and bound with
-``ctypes`` through a plain C interface: pointers and the current stream go in
-as ``c_void_p``, and each launch function returns ``cudaGetLastError()``.
+Each source in ``ipcgen_tpu_torch/csrc`` (``SOURCES``) is compiled on first
+use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
+-fPIC`` plus its own flags into its own library under
+``build/ipcgen_tpu_torch/`` at the repository root (the file name carries a
+hash of the source and the command, so an edited kernel is rebuilt).  The
+sources that are missing are compiled together, one ``nvcc`` process each.
+Each library is bound with ``ctypes`` through a plain C interface: pointers
+and the current stream go in as ``c_void_p``, and each launch function
+returns ``cudaGetLastError()``.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream without
@@ -19,6 +22,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -30,11 +34,26 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
+# Kernel name -> its own nvcc flags.  The culled raycast must round every
+# product and sum on its own (bit-exact against the oracle): no FMA
+# contraction.
+SOURCES = {
+    "raycast_pairs": [],
+    "raycast_culled": ["-fmad=false"],
+}
 
 # Launch count per kernel; a run resets these to 0 and reads them after.
-LAUNCHES = {"raycast_pairs": 0}
+LAUNCHES = {name: 0 for name in SOURCES}
+# Seconds the last build of each kernel took (0.0 when it was already built).
+BUILD_SECONDS = {}
 
-_LIB = None
+_LIBS = {}
+
+_C_PTR, _C_INT, _C_FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "raycast_pairs": [_C_PTR] * 7 + [_C_INT] * 4 + [_C_FLOAT, _C_PTR],
+    "raycast_culled": [_C_PTR] * 9 + [_C_INT] * 5 + [_C_FLOAT, _C_INT, _C_PTR],
+}
 
 
 def _nvcc() -> str:
@@ -45,36 +64,57 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build() -> ctypes.CDLL:
-    """Compile ``csrc/raycast_pairs.cu`` (once per source version) and
-    load it."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    src = CSRC / "raycast_pairs.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    so = BUILD_DIR / f"libraycast_pairs_{digest}.so"
-    if not so.is_file():
+def nvcc_command(name: str, out: Path, nvcc: str = "nvcc") -> list:
+    """The command that compiles ``csrc/<name>.cu`` into ``out``."""
+    return [nvcc, *NVCC_FLAGS, *SOURCES[name], "-o", str(out),
+            str(CSRC / f"{name}.cu")]
+
+
+def _library_path(name: str) -> Path:
+    key = (CSRC / f"{name}.cu").read_bytes() + " ".join(
+        NVCC_FLAGS + SOURCES[name]).encode()
+    return BUILD_DIR / f"lib{name}_{hashlib.sha256(key).hexdigest()[:12]}.so"
+
+
+def build() -> dict:
+    """Compile every kernel source not built yet (all at once, one nvcc
+    each), load each library once, and return them by kernel name."""
+    if len(_LIBS) == len(SOURCES):
+        return _LIBS
+    nvcc = _nvcc()
+    procs = {}
+    for name in SOURCES:
+        so = _library_path(name)
+        BUILD_SECONDS.setdefault(name, 0.0)
+        if name in _LIBS or so.is_file():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
+        procs[name] = (so, tmp, time.perf_counter(), subprocess.Popen(
+            nvcc_command(name, tmp, nvcc), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (so, tmp, t0, proc) in procs.items():
+        out, err = proc.communicate()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {src.name}:\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    lib.raycast_pairs_launch.restype = ctypes.c_int
-    lib.raycast_pairs_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_void_p]
-    )
-    lib.raycast_pairs_error_string.restype = ctypes.c_char_p
-    lib.raycast_pairs_error_string.argtypes = [ctypes.c_int]
-    _LIB = lib
-    return lib
+            failed.append(f"nvcc failed for {name}.cu:\n{out}\n{err}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in SOURCES:
+        if name in _LIBS:
+            continue
+        lib = ctypes.CDLL(str(_library_path(name)))
+        launch = getattr(lib, f"{name}_launch")
+        launch.restype = ctypes.c_int
+        launch.argtypes = _ARGTYPES[name]
+        error_string = getattr(lib, f"{name}_error_string")
+        error_string.restype = ctypes.c_char_p
+        error_string.argtypes = [ctypes.c_int]
+        _LIBS[name] = lib
+    return _LIBS
 
 
 def _check(x: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -89,6 +129,19 @@ def _check(x: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name}: {x.dim()}-D, expected {ndim}-D")
     if not x.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Call ``<name>_launch`` on the current stream of ``device``; raise if
+    the launch was refused, else count it."""
+    lib = build()[name]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"{name}_launch")(*args, stream)
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name}_kernel launch failed: {msg} ({rc})")
+    LAUNCHES[name] += 1
 
 
 def raycast_pairs_cuda(f, trif, offsets, blocks, walk_all, t_init: float,
@@ -121,17 +174,55 @@ def raycast_pairs_cuda(f, trif, offsets, blocks, walk_all, t_init: float,
     slot = torch.empty(n_subtiles * sub, dtype=torch.int32, device=device)
     if n_subtiles == 0:
         return t, slot
-    lib = build()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.raycast_pairs_launch(
+    _launch("raycast_pairs", device,
             f.data_ptr(), trif.data_ptr(), offsets.data_ptr(),
             blocks.data_ptr(), walk_all.data_ptr(), t.data_ptr(),
-            slot.data_ptr(), n_subtiles, sub, nb, width // 5,
-            float(t_init), stream,
-        )
-    if rc != 0:
-        msg = lib.raycast_pairs_error_string(rc).decode()
-        raise RuntimeError(f"raycast_pairs_kernel launch failed: {msg} ({rc})")
-    LAUNCHES["raycast_pairs"] += 1
+            slot.data_ptr(), n_subtiles, sub, nb, width // 5, float(t_init))
+    return t, slot
+
+
+def raycast_culled_cuda(origins, dirs, tri_data, block_lo, block_hi,
+                        super_lo, super_hi, super_factor: int, t_init: float,
+                        group: int = 256):
+    """Launch ``raycast_culled_kernel`` (csrc/raycast_culled.cu).
+
+    origins, dirs (R, 3) float32; tri_data (NB, 16, TB) float32; block_lo,
+    block_hi (NB, 3) and super_lo, super_hi (NS, 3) float32 with
+    NS * super_factor >= NB; all on one CUDA device.  ``group`` rays share
+    one CUDA block.  Returns (t (R,) float32, +inf on miss, slot (R,) int32,
+    -1 on miss).
+    """
+    device = origins.device
+    if device.type != "cuda":
+        raise ValueError(f"raycast_culled_cuda: origins is on {device}, not CUDA")
+    for x, name, ndim in ((origins, "origins", 2), (dirs, "dirs", 2),
+                          (tri_data, "tri_data", 3), (block_lo, "block_lo", 2),
+                          (block_hi, "block_hi", 2), (super_lo, "super_lo", 2),
+                          (super_hi, "super_hi", 2)):
+        _check(x, name, torch.float32, ndim, device)
+    n = origins.shape[0]
+    nb, rows, tb = tri_data.shape
+    ns = super_lo.shape[0]
+    if origins.shape != (n, 3) or dirs.shape != (n, 3):
+        raise ValueError(f"origins/dirs: shapes {tuple(origins.shape)}, "
+                         f"{tuple(dirs.shape)}, expected (R, 3) each")
+    if rows != 16:
+        raise ValueError(f"tri_data: shape {tuple(tri_data.shape)}, expected (NB, 16, TB)")
+    if block_lo.shape != (nb, 3) or block_hi.shape != (nb, 3):
+        raise ValueError(f"block_lo/block_hi: expected ({nb}, 3)")
+    if super_hi.shape != (ns, 3) or super_lo.shape != (ns, 3):
+        raise ValueError(f"super_lo/super_hi: expected ({ns}, 3)")
+    if super_factor <= 0 or ns * super_factor < nb:
+        raise ValueError(f"{ns} supers of {super_factor} do not cover {nb} blocks")
+    if not 0 < group <= 256:
+        raise ValueError(f"group must be in 1..256, got {group}")
+    t = torch.empty(n, dtype=torch.float32, device=device)
+    slot = torch.empty(n, dtype=torch.int32, device=device)
+    if n == 0:
+        return t, slot
+    _launch("raycast_culled", device,
+            origins.data_ptr(), dirs.data_ptr(), tri_data.data_ptr(),
+            block_lo.data_ptr(), block_hi.data_ptr(), super_lo.data_ptr(),
+            super_hi.data_ptr(), t.data_ptr(), slot.data_ptr(), n, nb, ns,
+            int(super_factor), tb, float(t_init), int(group))
     return t, slot

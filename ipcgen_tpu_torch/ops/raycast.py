@@ -1,14 +1,21 @@
-"""Ray/mesh intersection: the brute oracle, finalize, and the public dispatch.
+"""Ray/mesh intersection: the oracles, finalize, and the public dispatch.
 
-Port of ``ipcgen_tpu/ops/raycast.py`` (:40-79 ``raycast_brute``, :261-279
-``finalize_result``, :290-351 ``raycast_asset``).  The backends are:
+Port of ``ipcgen_tpu/ops/raycast.py`` (:40-79 ``raycast_brute``, :82-113
+``_raycast_asset_xla_core`` as ``raycast_block_scan``, :261-279
+``finalize_result``, :282-287 ``raycast_asset_xla`` and :336-351 as
+``raycast_asset_brute``, :290-351 ``raycast_asset``).  The backends are:
 
 - ``"pairs"`` (default): the candidate-pair raycast of
   ``ops/raycast_pairs.py``.  Its inner loop is the CUDA kernel for CUDA
   tensors and the kernel's plain PyTorch version for CPU tensors; any other
   device raises.
-- ``"brute"``: Moller-Trumbore of every ray against every packed triangle,
-  the independent oracle the tests and ``chip_smoke.py`` hold the kernel to.
+- ``"culled"``: the two-level AABB-culled Moller-Trumbore raycast of
+  ``ops/raycast_culled.py`` (the JAX package's "pallas" and "xla"), with the
+  same kernel / plain-version dispatch.  Bit-exact against ``"brute"``.
+- ``"brute"``: the JAX package's ``xla_brute`` oracle, a scan over every
+  leaf block in the component form of Moller-Trumbore
+  (``raycast_block_scan``), with hits at or beyond ``t_max`` dropped
+  afterwards.
 
 There is no "auto" backend that picks a slower path off the accelerator: the
 device of the tensors decides, and a CUDA tensor goes to the kernel.
@@ -21,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ipcgen_tpu_torch.ops.geometry import moller_trumbore
+from ipcgen_tpu_torch.ops.geometry import moller_trumbore, moller_trumbore_components
 from ipcgen_tpu_torch.ops.scene_asset import SceneAsset
 
 
@@ -37,7 +44,9 @@ class RaycastResult(NamedTuple):
 
 def raycast_brute(origins, dirs, v0, e1, e2, chunk: int = 512,
                   max_elems: int = 1 << 22):
-    """Moller-Trumbore of every ray against every triangle.
+    """Moller-Trumbore of every ray against every triangle, in the vector
+    (sum) form of JAX ``raycast_brute``; the ``"brute"`` backend runs
+    ``raycast_block_scan`` instead.
 
     Chunked over triangles (``chunk`` per step, first minimum within a chunk,
     strict ``<`` across chunks: ties go to the smallest triangle index) and
@@ -90,35 +99,71 @@ def finalize_result(origins, dirs, t, packed_slot, asset: SceneAsset) -> Raycast
                          normals=normals)
 
 
-def asset_triangles(asset: SceneAsset):
-    """(v0, e1, e2), each (NB*TB, 3), in packed-slot order."""
-    nb, _, tb = asset.tri_data.shape
-    comp = asset.tri_data[:, :9, :].permute(0, 2, 1).reshape(nb * tb, 9)
-    return comp[:, 0:3], comp[:, 3:6], comp[:, 6:9]
+def raycast_block_scan(origins, dirs, tri_data, max_elems: int = 1 << 22):
+    """Moller-Trumbore (component form) of every ray against every leaf
+    block, block by block in ascending order: the first minimum within a
+    block, then strict ``<`` across blocks, so ties go to the smallest
+    packed slot.  Rays are taken in chunks of ``max_elems // TB``.
+
+    Returns (t (R,) +inf on miss, packed slot (R,) int32, -1 on miss).
+    """
+    origins = origins.float()
+    dirs = dirs.float()
+    nb, _, tb = tri_data.shape
+    n = origins.shape[0]
+    best_t = torch.full((n,), float("inf"), device=origins.device)
+    best_i = torch.full((n,), -1, dtype=torch.int32, device=origins.device)
+    ray_chunk = max(1, max_elems // tb)
+    for r0 in range(0, n, ray_chunk):
+        o = origins[r0:r0 + ray_chunk, :, None]  # (rays, 3, 1)
+        d = dirs[r0:r0 + ray_chunk, :, None]
+        bt = best_t[r0:r0 + ray_chunk]
+        bi = best_i[r0:r0 + ray_chunk]
+        for b in range(nb):
+            blk = tri_data[b]  # (16, TB) component panel
+            t = moller_trumbore_components(
+                o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
+                *(blk[k][None, :] for k in range(9)),
+            )  # (rays, TB)
+            tmin, targ = torch.min(t, dim=1)
+            take = tmin < bt
+            bt.copy_(torch.where(take, tmin, bt))
+            bi.copy_(torch.where(take, targ.int() + b * tb, bi))
+    return best_t, best_i
 
 
-def raycast_asset_brute(origins, dirs, asset: SceneAsset,
-                        t_max: float = np.inf, chunk: int = 512) -> RaycastResult:
-    """Oracle over the asset's packed triangles; hits at or beyond ``t_max``
-    are dropped afterwards."""
-    v0, e1, e2 = asset_triangles(asset)
-    t, slot = raycast_brute(origins, dirs, v0, e1, e2, chunk=chunk)
+def raycast_brute_components(origins, dirs, tri_data, t_max: float = np.inf,
+                             max_elems: int = 1 << 22):
+    """The oracle (JAX ``xla_brute``) as (t, packed slot): the block scan,
+    with hits at or beyond ``t_max`` dropped afterwards."""
+    t, slot = raycast_block_scan(origins, dirs, tri_data, max_elems=max_elems)
     if np.isfinite(t_max):
         keep = t < t_max
         t = torch.where(keep, t, torch.full_like(t, float("inf")))
         slot = torch.where(keep, slot, torch.full_like(slot, -1))
-    return finalize_result(origins.float(), dirs.float(), t, slot, asset)
+    return t, slot
+
+
+def raycast_asset_brute(origins, dirs, asset: SceneAsset,
+                        t_max: float = np.inf) -> RaycastResult:
+    """The oracle over the resident asset, finalized (with ``t_max`` left
+    infinite, JAX ``raycast_asset_xla``)."""
+    origins = origins.float()
+    dirs = dirs.float()
+    t, slot = raycast_brute_components(origins, dirs, asset.tri_data, t_max)
+    return finalize_result(origins, dirs, t, slot, asset)
 
 
 def raycast_asset(origins, dirs, asset: SceneAsset, backend: str = "pairs",
                   t_max: float = np.inf, sort_rays="auto") -> RaycastResult:
     """Intersect (R, 3) rays with the resident scene.
 
-    ``backend`` is ``"pairs"`` (CUDA kernel for CUDA tensors, its plain
-    version for CPU tensors) or ``"brute"`` (the oracle).  ``t_max`` caps the
-    hit distance (strictly below).  ``sort_rays`` (pairs only: "auto", True
-    or False) regroups incoherent rays into coherent tiles first; "auto"
-    does so when more than 2 % of tiles overflow their candidate lists.
+    ``backend`` is ``"pairs"`` or ``"culled"`` (CUDA kernel for CUDA
+    tensors, its plain version for CPU tensors) or ``"brute"`` (the
+    oracle).  ``t_max`` caps the hit distance (strictly below).
+    ``sort_rays`` (pairs only: "auto", True or False) regroups incoherent
+    rays into coherent tiles first; "auto" does so when more than 2 % of
+    tiles overflow their candidate lists.
     """
     origins = torch.as_tensor(origins, dtype=torch.float32,
                               device=asset.device)
@@ -128,8 +173,13 @@ def raycast_asset(origins, dirs, asset: SceneAsset, backend: str = "pairs",
 
         return raycast_asset_pairs(origins, dirs, asset, t_max=t_max,
                                    sort_rays=sort_rays)
+    if backend == "culled":
+        from ipcgen_tpu_torch.ops.raycast_culled import raycast_asset_culled
+
+        return raycast_asset_culled(origins, dirs, asset, t_max=t_max)
     if backend == "brute":
         return raycast_asset_brute(origins, dirs, asset, t_max=t_max)
     raise ValueError(
-        f"unknown raycast backend {backend!r}; expected 'pairs' or 'brute'"
+        f"unknown raycast backend {backend!r}; expected 'pairs', 'culled' "
+        "or 'brute'"
     )

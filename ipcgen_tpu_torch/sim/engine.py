@@ -1,6 +1,7 @@
 """Raycast engine facade (port of ``ipcgen_tpu/sim/engine.py``).
 
-- ``RaycastEngineCPU``: the brute oracle on CPU tensors.
+- ``RaycastEngineCPU``: the block-scan oracle (the JAX package's
+  ``raycast_asset_xla``) on CPU tensors.
 - ``RaycastEngineGPU``: the candidate-pair raycast on a CUDA device, whose
   inner loop is the CUDA kernel.  There is no fallback: without a card it
   raises where the kernel is launched.
@@ -63,7 +64,7 @@ class RaycastEngineBase:
 
 
 class RaycastEngineCPU(RaycastEngineBase):
-    """Brute Moller-Trumbore on the CPU."""
+    """The block-scan oracle on the CPU."""
 
     device = "cpu"
     backend = "brute"

@@ -2,10 +2,13 @@
 
 Port of ``ipcgen_tpu/sim/scan.py`` (:128-524).  The whole trajectory is one
 batch: beam patterns, pose transforms, one raycast over every (waypoint, ray)
-and the keep/range masks.  As in the JAX package, rays run in PATCH order
-(``patch_permutation``): the candidate-pair kernel wants angularly tight
-tiles.  ``"unordered"`` returns each waypoint's rays in that patch order, so
-its rows line up with the JAX package's mxu path.
+and the keep/range masks.  As in the JAX package, the ray order within a
+waypoint follows the raycast backend (``scan_permutation``): the
+candidate-pair kernel (``"pairs"``, the JAX package's mxu) wants angularly
+tight tiles and gets PATCH order; the culled kernel (``"culled"``, JAX's
+pallas and xla) and the oracle (``"brute"``) cast in beam order.
+``"unordered"`` returns each waypoint's rays in that order, so its rows line
+up with the JAX package's for the same backend.
 
 Randomness is explicit: the scan core takes the sensor pattern, the keep
 mask and the range-noise draws as tensors, and ``scan_waypoints`` draws them
@@ -121,9 +124,13 @@ def patch_permutation(h: int, w: int, lines_pp: int = 8,
     return perm
 
 
-def scan_permutation(intrinsics, r: int):
-    """(perm, inv_perm) numpy pair: the patch order the scan casts its rays
-    in (the JAX package's order for its mxu kernel)."""
+def scan_permutation(intrinsics, r: int, backend: str = "pairs"):
+    """(perm, inv_perm) numpy pair: the order the scan casts its rays in.
+    Patch order for the pair kernel (the JAX package's order for its mxu
+    kernel), the identity for every other backend."""
+    if backend != "pairs":
+        perm = np.arange(r, dtype=np.int32)
+        return perm, perm
     if isinstance(intrinsics, Indoor8LineLidarIntrinsics):
         h = (len(intrinsics.vertical_degrees)
              if intrinsics.vertical_degrees is not None
@@ -138,10 +145,10 @@ def scan_permutation(intrinsics, r: int):
 
 def _world_rays(poses: torch.Tensor, dirs_sensor: torch.Tensor,
                 perm: torch.Tensor):
-    """(W, R, 3) world origins and directions in patch order."""
+    """(W, R, 3) world origins and directions in the scan's ray order."""
     w = poses.shape[0]
     r = dirs_sensor.shape[1]
-    dirs_sp = dirs_sensor[:, perm]  # (WB, R, 3) patch order
+    dirs_sp = dirs_sensor[:, perm]  # (WB, R, 3) in the scan's ray order
     dirs_wp = beams.dirs_to_world_batch(dirs_sp.expand(w, r, 3), poses)
     origins = poses[:, None, :3, 3].expand(w, r, 3)
     return origins, dirs_wp
@@ -157,9 +164,10 @@ def _scan_core(
     inv_perm: torch.Tensor,
     max_range: float,
     outputs: str = "full",
+    backend: str = "pairs",
 ) -> ScanBatch:
-    """Everything after beam generation: pose transform, raycast in patch
-    order, range noise, keep and range masks, outputs.
+    """Everything after beam generation: pose transform, raycast in the
+    order ``perm`` gives, range noise, keep and range masks, outputs.
 
     dirs_sensor (WB, R, 3) and keep (WB, R) are in BEAM order (WB = 1 or W);
     range_noise (W, R) holds the sigma-scaled draws in beam order, or None.
@@ -170,11 +178,11 @@ def _scan_core(
     r = dirs_sensor.shape[1]
     perm = perm.long()
     origins, dirs_wp = _world_rays(poses, dirs_sensor, perm)
-    # The patch order already makes the tiles coherent: no ray sort, as in
+    # The scan's order already makes the tiles coherent: no ray sort, as in
     # the JAX scan (whose "auto" sort is off under jit).
     res = raycast_asset(
         origins.reshape(w * r, 3), dirs_wp.reshape(w * r, 3), asset,
-        t_max=max_range, sort_rays=False,
+        backend=backend, t_max=max_range, sort_rays=False,
     )
     t = res.t.view(w, r)
     hit = res.hit.view(w, r)
@@ -226,17 +234,20 @@ def _draw_scan(intrinsics, poses, generator, device):
     return poses, generator, dirs_sensor, keep
 
 
-def scan_rays(intrinsics, poses, generator: Optional[torch.Generator], device):
-    """The rays ``scan_waypoints`` casts, as it casts them.
+def scan_rays(intrinsics, poses, generator: Optional[torch.Generator], device,
+              backend: str = "pairs"):
+    """The rays ``scan_waypoints(..., backend=backend)`` casts, as it casts
+    them.
 
     Returns ``(origins (W*R, 3), dirs (W*R, 3), keep (W*R,) bool or None)``,
-    waypoint-major and in patch order within each waypoint: the order and
-    tiling of the scan's one raycast.  Given a generator in the state
-    ``scan_waypoints`` would get it, these are the scan's own rays.
+    waypoint-major and in the backend's order within each waypoint: the
+    order and tiling of the scan's one raycast.  Given a generator in the
+    state ``scan_waypoints`` would get it, these are the scan's own rays.
     """
     poses, _, dirs_sensor, keep = _draw_scan(intrinsics, poses, generator, device)
     w, r = poses.shape[0], dirs_sensor.shape[1]
-    perm = torch.tensor(scan_permutation(intrinsics, r)[0], device=device).long()
+    perm = torch.tensor(scan_permutation(intrinsics, r, backend)[0],
+                        device=device).long()
     origins, dirs = _world_rays(poses, dirs_sensor, perm)
     if keep is not None:
         keep = keep[:, perm].expand(w, r).reshape(-1)
@@ -251,14 +262,16 @@ def scan_waypoints(
     generator: Optional[torch.Generator] = None,
     apply_range_noise: bool = False,
     outputs: str = "full",
+    backend: str = "pairs",
 ) -> ScanBatch:
     """Scan the scene from every (W, 4, 4) waypoint pose in one batch.
 
     ``generator`` (on the asset's device; seed 0 when None) draws the
     dual-axis angle noise and dropout, then the range noise.  Hits at or
     beyond ``max_range`` are dropped; ``outputs`` is "full", "minimal"
-    (points/t/mask only, beam order) or "unordered" (points/t/mask in patch
-    order within each waypoint).
+    (points/t/mask only, beam order) or "unordered" (points/t/mask in the
+    backend's ray order within each waypoint).  ``backend`` is the raycast
+    backend of ``ops.raycast.raycast_asset``.
     """
     device = asset.device
     poses, generator, dirs_sensor, keep = _draw_scan(intrinsics, poses,
@@ -270,9 +283,9 @@ def scan_waypoints(
     if sigma > 0.0:
         range_noise = torch.randn((w, r), generator=generator,
                                   device=device) * sigma
-    perm, inv_perm = scan_permutation(intrinsics, r)
+    perm, inv_perm = scan_permutation(intrinsics, r, backend)
     return _scan_core(
         asset, poses, dirs_sensor, keep, range_noise,
         torch.tensor(perm, device=device), torch.tensor(inv_perm, device=device),
-        float(intrinsics.max_range), outputs,
+        float(intrinsics.max_range), outputs, backend,
     )

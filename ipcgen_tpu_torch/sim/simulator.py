@@ -1,14 +1,22 @@
 """S3DIS simulation orchestration on one device.
 
-Port of ``ipcgen_tpu/sim/simulator.py`` (:56-489, :546-611): load the mesh
+Port of ``ipcgen_tpu/sim/simulator.py`` (:56-489, :509-611): load the mesh
 and build the resident scene asset, plan the trajectory on the host, run the
 fused multi-waypoint scan, build the frames and statistics, transfer labels
 and write the artifacts.  The device is explicit (default ``"cuda"``);
 nothing falls back to another device or engine.
 
+The raycast backend comes from the config's ``raycast_engine.backend``, in
+the JAX package's names (``port_backend``): "auto" and "mxu" run the
+candidate-pair kernel, "pallas" and "xla" the culled Moller-Trumbore kernel
+(both compute the same function in the JAX package), "xla_brute" the block-
+scan oracle.  "auto" does not copy the JAX package's "xla off the TPU" rule:
+the tensors' device picks the kernel or its plain version.
+
 Not ported yet (see ROADMAP.md): visualisations, raycast occupancy for the
-trajectory planner, multi-device room parallelism and the batch entry
-points ``main``/``main_single``.
+trajectory planner, multi-device room parallelism, the shard-level raycast
+paths, and the batch entry points ``main``/``main_single`` with
+``find_available_scenes``.
 """
 
 from __future__ import annotations
@@ -41,6 +49,26 @@ from ipcgen_tpu_torch.ops.scene_asset import SceneAsset, build_scene_asset
 from ipcgen_tpu_torch.sim.scan import scan_waypoints
 from ipcgen_tpu_torch.utils.device import as_device, sync
 
+# The JAX package's raycast backend names -> the port's backends.
+RAYCAST_BACKENDS = {
+    "auto": "pairs",
+    "mxu": "pairs",
+    "pallas": "culled",
+    "xla": "culled",
+    "xla_brute": "brute",
+}
+
+
+def port_backend(name: str) -> str:
+    """The port's raycast backend for a JAX backend name; raises on an
+    unknown name."""
+    try:
+        return RAYCAST_BACKENDS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown raycast backend {name!r}; expected one of "
+            f"{', '.join(map(repr, RAYCAST_BACKENDS))}") from None
+
 
 class S3DISSimulator:
     """Loads a scene, plans a trajectory, scans it and exports the results."""
@@ -56,6 +84,8 @@ class S3DISSimulator:
         self.use_dense_lidar = use_dense_lidar
         self.use_blk2go = use_blk2go
         self.device = as_device(device)
+        self.backend = port_backend(
+            (config.get("raycast_engine") or {}).get("backend", "auto"))
         self.scene: Optional[S3DISScene] = None
         self.scene_asset: Optional[SceneAsset] = None
         self.trajectory_generator: Optional[SmartTrajectoryGenerator] = None
@@ -144,6 +174,7 @@ class S3DISSimulator:
             # collect_scan only mask-selects per waypoint, so the in-waypoint
             # ray order does not matter.
             outputs="unordered",
+            backend=self.backend,
         )
 
     def collect_scan(self, batch, waypoints: List[Waypoint],
@@ -250,6 +281,46 @@ class S3DISSimulator:
             json.dump(analysis_info, f, indent=2, ensure_ascii=False)
         sim_scene.profile["save"] = time.time() - t3
         return sim_scene
+
+
+def load_config(config_path: str) -> Dict[str, Any]:
+    """Load a YAML configuration file (yaml is imported here, at load)."""
+    import yaml
+
+    with open(config_path, "r", encoding="utf-8") as f:
+        return yaml.safe_load(f)
+
+
+def load_default_config() -> Dict[str, Any]:
+    """The repository's ``configs/default_config.yaml``, or a minimal flat
+    config when it is missing."""
+    config_path = Path(__file__).resolve().parents[2] / "configs" / "default_config.yaml"
+    if config_path.exists():
+        return load_config(str(config_path))
+    return {"raycast_engine": {"use_gpu": True}, "trajectory": {"robot_height": 1.0}}
+
+
+def create_simulator_from_config(config_path: Optional[str] = None,
+                                 device="cuda") -> S3DISSimulator:
+    """Simulator on ``device`` from a config file (the default config when
+    None).
+
+    Takes both the flat simulator dict and the typed ``PipelineConfig`` tree
+    (``configs/default_config.yaml``); the tree goes through
+    ``PipelineConfig.simulator_config()``.
+    """
+    config = load_default_config() if config_path is None else load_config(config_path)
+    if "simulation" in config and "raycast_engine" not in config:
+        from ipcgen_tpu.config import PipelineConfig
+
+        tree = PipelineConfig.from_dict(config)
+        return S3DISSimulator(
+            tree.simulator_config(),
+            use_dense_lidar=tree.simulation.use_dense_lidar,
+            use_blk2go=tree.simulation.use_blk2go,
+            device=device,
+        )
+    return S3DISSimulator(config, device=device)
 
 
 def run_single_scene_simulation(

@@ -1,15 +1,19 @@
-"""The CUDA kernel on the card, plus the jax-free scenes and checks that the
+"""The CUDA kernels on the card, plus the jax-free scenes and checks that the
 CPU parity tests share.
 
 This file imports no jax, so it also runs on the GPU host, which has none:
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q`` (the repository
 conftest imports jax).  Without a card its ``cuda`` tests skip.  Tolerances:
 
-- kernel vs its plain version: same slot on >= 99.99 % of rays and t within
-  1e-5 relative (the same float32 products, summed in another FMA order);
-- kernel vs the brute oracle on the oblique/degenerate fuzz: the raycast
+- pair kernel vs its plain version: same slot on >= 99.99 % of rays and t
+  within 1e-5 relative (the same float32 products, summed in another FMA
+  order);
+- pair kernel vs the brute oracle on the oblique/degenerate fuzz: the raycast
   contract of tests/test_tpu_hardware.py:234-258 (hit masks agree >= 99 %,
-  same triangle >= 99 %, hit-point error p99 <= 5 mm and max <= 5 cm).
+  same triangle >= 99 %, hit-point error p99 <= 5 mm and max <= 5 cm);
+- culled kernel vs its plain version and vs the oracle: bit for bit (the
+  hardware contract of tests/test_tpu_hardware.py:57-70): every product and
+  sum is rounded on its own in all three.
 """
 
 import numpy as np
@@ -48,6 +52,42 @@ def cluttered_room(rng, n_boxes=5):
         off += len(b.vertices)
     return (np.concatenate(vs).astype(np.float32),
             np.concatenate(ts).astype(np.int32))
+
+
+def hardware_rays(rng, n):
+    """The ray layout of tests/test_tpu_hardware.py:45-50: rays from the room
+    centre, the last quarter from origins outside the room."""
+    origins = np.tile(np.array([2, 1.5, 1.0], np.float32), (n, 1))
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    origins[3 * n // 4:] = rng.uniform(-12, -6, (n // 4, 3)).astype(np.float32)
+    return origins, dirs
+
+
+def hardware_scene(n):
+    """The cluttered room and rays of tests/test_tpu_hardware.py:31-50
+    (seed 0, six boxes)."""
+    rng = np.random.default_rng(0)
+    verts, tris = cluttered_room(rng, n_boxes=6)
+    return verts, tris, *hardware_rays(rng, n)
+
+
+def t_max_scene():
+    """One triangle hit at exactly t = 2 by the first ray, the same triangle
+    again in the next leaf block (block_size 1), and a ray that misses."""
+    tri = np.array([[0, 0, 2], [4, 0, 2], [0, 4, 2]], np.float32)
+    verts = np.concatenate([tri, tri])
+    tris = np.arange(6, dtype=np.int32).reshape(2, 3)
+    origins = np.array([[1, 1, 0], [10, 10, 0]], np.float32)
+    dirs = np.array([[0, 0, 1], [0, 0, 1]], np.float32)
+    return verts, tris, origins, dirs
+
+
+def same_result(a, b):
+    """Two RaycastResults equal bit for bit."""
+    for name in ("t", "tri_id", "hit", "points", "normals"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert torch.equal(x, y), (name, int((x != y).sum()))
 
 
 def contract(hit_a, hit_b, tri_a, tri_b, pts_a, pts_b):
@@ -180,3 +220,71 @@ def test_cpu_tensors_never_reach_the_kernel():
     before = _kernels.LAUNCHES["raycast_pairs"]
     fuzz_check("cpu", 1)
     assert _kernels.LAUNCHES["raycast_pairs"] == before
+
+
+def culled_cases(device):
+    """(label, asset, origins, dirs, t_max) of the culled kernel's card tests."""
+    verts, tris, origins, dirs = hardware_scene(8192)
+    cases = [("cluttered 8k", build_scene_asset(verts, tris, device=device),
+              origins, dirs, 20.0)]
+    verts, tris, origins, dirs = t_max_scene()
+    asset = build_scene_asset(verts, tris, block_size=1, super_factor=2,
+                              device=device)
+    cases += [(f"t_max {t}", asset, origins, dirs, t)
+              for t in (2.0, float(np.nextafter(np.float32(2), np.float32(3))))]
+    return cases
+
+
+@pytest.mark.cuda
+def test_culled_kernel_bit_exact_on_card(cuda_device):
+    """The culled kernel against its plain version (t, slot) and against the
+    oracle (t, tri_id, hit, points, normals), bit for bit."""
+    from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.ops.raycast_culled import raycast_culled_plain, t_init_for
+
+    for label, asset, origins, dirs, t_max in culled_cases(cuda_device):
+        o, d = t_(origins).to(cuda_device), t_(dirs).to(cuda_device)
+        args = (o, d, asset.tri_data, asset.block_lo, asset.block_hi,
+                asset.super_lo, asset.super_hi, asset.super_factor,
+                t_init_for(t_max))
+        before = _kernels.LAUNCHES["raycast_culled"]
+        tk, sk = _kernels.raycast_culled_cuda(*args)
+        assert _kernels.LAUNCHES["raycast_culled"] == before + 1
+        tp, sp = raycast_culled_plain(*args)
+        assert torch.equal(tk, tp) and torch.equal(sk, sp), label
+        rk = raycast_asset(o, d, asset, backend="culled", t_max=t_max)
+        ro = raycast_asset(o, d, asset, backend="brute", t_max=t_max)
+        same_result(rk, ro)
+        if label == "t_max 2.0":
+            assert not rk.hit[0]  # a hit at exactly t_max is dropped
+        elif label.startswith("t_max"):
+            # The tie between the two blocks goes to the smaller slot.
+            assert rk.hit[0] and rk.t[0].item() == 2.0
+            assert rk.tri_id[0].item() == asset.tri_index[0].item()
+        else:
+            assert 0.5 < rk.hit.float().mean().item() < 1.0
+
+
+@pytest.mark.cuda
+def test_culled_wrapper_rejects_bad_inputs(cuda_device):
+    from ipcgen_tpu_torch.ops import _kernels
+
+    f32 = dict(dtype=torch.float32, device=cuda_device)
+    o = torch.zeros((256, 3), **f32)
+    tri = torch.zeros((2, 16, 128), **f32)
+    box = torch.zeros((2, 3), **f32)
+    sup = torch.zeros((1, 3), **f32)
+    good = (o, o, tri, box, box, sup, sup, 2, 1e30)
+    _kernels.raycast_culled_cuda(*good)
+    with pytest.raises(TypeError):
+        _kernels.raycast_culled_cuda(o.double(), *good[1:])
+    with pytest.raises(ValueError):
+        _kernels.raycast_culled_cuda(o.cpu(), *good[1:])
+    with pytest.raises(ValueError):
+        _kernels.raycast_culled_cuda(o, o[:, :2].contiguous(), *good[2:])
+    with pytest.raises(ValueError):
+        _kernels.raycast_culled_cuda(*good[:2], tri[:, :9].contiguous(), *good[3:])
+    with pytest.raises(ValueError):  # one super of one block cannot hold two
+        _kernels.raycast_culled_cuda(*good[:7], 1, 1e30)
+    with pytest.raises(ValueError):
+        _kernels.raycast_culled_cuda(*good, group=512)

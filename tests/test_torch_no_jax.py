@@ -1,6 +1,9 @@
 """The port runs where jax, matplotlib and yaml are missing (as on the GPU
 host): a subprocess blocks all three, imports ``ipcgen_tpu_torch`` and runs
-the sim stage on the CPU through the port's public entry point."""
+the sim stage on the CPU through the port's public entry point, then again
+through the config tree (``PipelineConfig.from_dict`` with
+``simulation.backend: pallas``, the culled path), as ``chip_smoke.py`` does
+on the card."""
 
 import os
 import re
@@ -39,6 +42,24 @@ SCRIPT = textwrap.dedent("""
     assert len(scene.frames) > 0 and all(len(f.points) for f in scene.frames)
     _, _, sem, _ = read_labeled_ply(out / "office_1" / "combined_pointcloud_with_label.ply")
     assert len(np.unique(sem)) > 3, np.unique(sem)
+
+    from ipcgen_tpu.config import PipelineConfig
+    from ipcgen_tpu_torch.sim.simulator import S3DISSimulator
+
+    tree = PipelineConfig.from_dict({
+        "simulation": {"backend": "pallas", "use_blk2go": False},
+        "data": {"data_root": sys.argv[2], "area_name": "Area_1",
+                 "room_name": "office_1"}})
+    config = dict(tree.simulator_config(), lidar={"horizontal_res": 200})
+    sim = S3DISSimulator(config, use_blk2go=False, device="cpu")
+    assert sim.backend == "culled"
+    culled = sim.run_auto_simulation(str(mesh), num_waypoints=4,
+                                     output_dir=out / "culled", scene_name="office_1")
+    counts = [len(f.points) for f in culled.frames]
+    want = [len(f.points) for f in scene.frames]
+    assert len(counts) == len(want) and all(
+        abs(a - b) <= 0.005 * b for a, b in zip(counts, want)), (counts, want)
+    assert (out / "culled" / "combined_pointcloud_with_label.ply").is_file()
     assert all(sys.modules[n] is None for n in ("jax", "matplotlib", "yaml"))
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "matplotlib", "yaml")
               and sys.modules[m] is not None]

@@ -14,6 +14,12 @@ The unordered output is checked on its own terms too: per waypoint, the same
 hit count and the same order-free hash of the hit points (quantised to
 0.1 mm) as the beam-ordered output of the same scan.  The port's own random
 draws are checked by distribution.
+
+The culled scan (``backend="culled"``) is held against JAX
+``scan_waypoints(backend="xla")``, the same function as "pallas" with the
+same identity permutation: rows in beam order for both "unordered" and
+"full", masks equal and hit points within 1e-5 m (both are float32
+Moller-Trumbore; XLA may fuse what torch rounds step by step).
 """
 
 import numpy as np
@@ -91,19 +97,22 @@ def jax_scan_mxu(ja, intr, outputs, monkeypatch):
     return np.asarray(b.points), np.asarray(b.mask)
 
 
-def port_scan_injected(pa, jintr, outputs):
+JAX_BACKEND = {"pairs": "mxu", "culled": "xla"}
+
+
+def port_scan_injected(pa, jintr, outputs, backend="pairs"):
     """The port's scan core on the patterns/keep masks JAX drew."""
     pintr = from_reference(jintr)
     dirs, keep = jax_scan.sensor_dirs_batch(jintr, len(POSES), jax.random.PRNGKey(7))
     dirs = torch.from_numpy(np.array(dirs))
     keep = torch.from_numpy(np.array(keep)) if isinstance(jintr, JaxDual) else None
     r = dirs.shape[1]
-    perm, inv = port_scan.scan_permutation(pintr, r)
-    jperm, _ = jax_scan.scan_permutation(jintr, "mxu", r)
+    perm, inv = port_scan.scan_permutation(pintr, r, backend)
+    jperm, _ = jax_scan.scan_permutation(jintr, JAX_BACKEND[backend], r)
     np.testing.assert_array_equal(perm, jperm)
     b = port_scan._scan_core(
         pa, torch.from_numpy(POSES), dirs, keep, None, torch.tensor(perm),
-        torch.tensor(inv), float(pintr.max_range), outputs)
+        torch.tensor(inv), float(pintr.max_range), outputs, backend)
     return b.points.numpy(), b.mask.numpy()
 
 
@@ -170,6 +179,62 @@ def test_scan_rays_are_the_scans_own(scene, profile):
     w, r = batch.mask.shape
     assert torch.equal(mask.view(w, r), batch.mask)
     assert torch.equal(res.points.view(w, r, 3)[batch.mask], batch.points[batch.mask])
+
+
+@pytest.mark.parametrize("outputs", ["unordered", "full"])
+@pytest.mark.parametrize("profile", ["line8", "dense32", "blk2go"])
+def test_culled_scan_matches_jax_xla(scene, profile, outputs):
+    ja, pa = scene
+    jintr = profiles()[profile]
+    jb = jax_scan.scan_waypoints(ja, jintr, POSES, key=jax.random.PRNGKey(7),
+                                 backend="xla", outputs=outputs)
+    jp, jm = np.asarray(jb.points), np.asarray(jb.mask)
+    pp, pm = port_scan_injected(pa, jintr, outputs, backend="culled")
+    assert pp.shape == jp.shape
+    np.testing.assert_array_equal(pm, jm)
+    assert pm.mean() > 0.9
+    np.testing.assert_allclose(pp[pm], jp[jm], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("profile", ["dense32", "blk2go"])
+def test_culled_scan_rays_are_the_scans_own(scene, profile):
+    """``scan_rays(backend="culled")`` gives the culled scan's rays, in beam
+    order (identity permutation): cast again they reproduce its
+    "unordered" output bit for bit, which equals its beam-ordered "minimal"
+    output."""
+    from ipcgen_tpu_torch.ops.raycast import raycast_asset
+
+    _, pa = scene
+    intr = from_reference(profiles()[profile])
+    scans = [port_scan.scan_waypoints(
+        pa, intr, POSES, generator=torch.Generator().manual_seed(11),
+        outputs=outputs, backend="culled") for outputs in ("unordered", "minimal")]
+    assert torch.equal(scans[0].mask, scans[1].mask)
+    assert torch.equal(scans[0].points, scans[1].points)
+    o, d, keep = port_scan.scan_rays(intr, POSES, torch.Generator().manual_seed(11),
+                                     "cpu", backend="culled")
+    res = raycast_asset(o, d, pa, backend="culled", t_max=float(intr.max_range))
+    mask = res.hit if keep is None else res.hit & keep
+    w, r = scans[0].mask.shape
+    assert torch.equal(mask.view(w, r), scans[0].mask)
+    assert torch.equal(res.points.view(w, r, 3)[scans[0].mask],
+                       scans[0].points[scans[0].mask])
+
+
+def test_scan_permutation_follows_the_backend():
+    """Patch order for the pair kernel, the identity for the others (as the
+    JAX package gives its mxu and its other backends)."""
+    for name, jintr in profiles().items():
+        pintr = from_reference(jintr)
+        r = 4000 if name != "dense32" else 8000
+        for backend, jax_backend in (("pairs", "mxu"), ("culled", "pallas"),
+                                     ("brute", "xla_brute")):
+            perm, inv = port_scan.scan_permutation(pintr, r, backend)
+            jperm, jinv = jax_scan.scan_permutation(jintr, jax_backend, r)
+            np.testing.assert_array_equal(perm, jperm)
+            np.testing.assert_array_equal(inv, jinv)
+            if backend != "pairs":
+                np.testing.assert_array_equal(perm, np.arange(r))
 
 
 def test_dual_axis_dropout_rate():

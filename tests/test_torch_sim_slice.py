@@ -10,6 +10,11 @@ edge-tie differences); the labeled PLY header byte-identical; on rows joined
 at 0.1 mm (as sim_scene.py:34-65 joins), >= 99 % of the port's rows matched
 and their labels identical except on near-ties (within 0.5 mm) that the
 JAX package's float32 exact 1-NN resolves inexactly (see the test).
+
+The port configured with ``raycast_engine.backend: pallas`` (its culled
+Moller-Trumbore path) is held to the same JAX run at the same tolerances:
+off the TPU the JAX package's "auto" is its "xla" backend, the same
+function as "pallas".
 """
 
 from pathlib import Path
@@ -20,6 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)  # six pytest-xdist workers share the CPU cores
 
+import jax  # noqa: E402
 from ipcgen_tpu.containers import TriMesh  # noqa: E402
 from ipcgen_tpu.containers.sim_scene import _exact_coord_join  # noqa: E402
 from ipcgen_tpu.io.ply import read_labeled_ply  # noqa: E402
@@ -44,11 +50,33 @@ def runs(tmp_path_factory):
     jax_scene = jax_run(str(mesh_path), output_base_dir=str(root / "jax"), **KW)
     port_scene = port_run(str(mesh_path), output_base_dir=str(root / "port"),
                           device="cpu", **KW)
-    return dict(jax=jax_scene, port=port_scene,
+    assert jax.default_backend() == "cpu"  # so the JAX run's "auto" is "xla"
+    return dict(jax=jax_scene, port=port_scene, root=root,
                 jax_dir=root / "jax" / "office_1", port_dir=root / "port" / "office_1")
 
 
-def test_frames_match(runs):
+@pytest.fixture(scope="module")
+def culled_run(runs):
+    """The port's run of the same scene with the culled backend, configured
+    as a user would: ``raycast_engine.backend: pallas``."""
+    from ipcgen_tpu_torch.sim.simulator import S3DISSimulator
+
+    config = {
+        "raycast_engine": {"backend": "pallas"},
+        "trajectory": {"robot_height": 1.0}, "s3dis_data_root": str(GOLDEN),
+        "area": "Area_1", "room": "office_1", "seed": 0,
+        "lidar": {"horizontal_res": KW["lidar_horizontal_res"]},
+    }
+    sim = S3DISSimulator(config, use_dense_lidar=True, use_blk2go=False, device="cpu")
+    assert sim.backend == "culled"
+    out = runs["root"] / "culled" / "office_1"
+    scene = sim.run_auto_simulation(str(runs["root"] / "mesh_dense.ply"),
+                                    num_waypoints=KW["num_waypoints"],
+                                    output_dir=out, scene_name="office_1")
+    return dict(runs, port=scene, port_dir=out)
+
+
+def check_frames(runs):
     jf, pf = runs["jax"].frames, runs["port"].frames
     assert len(pf) == len(jf) > 0
     for a, b in zip(jf, pf):
@@ -56,7 +84,7 @@ def test_frames_match(runs):
         assert abs(na - nb) <= 0.005 * na, (a.frame_index, na, nb)
 
 
-def test_artifacts_and_statistics(runs):
+def check_artifacts_and_statistics(runs):
     for name in ("combined_pointcloud.ply", PLY, "simulation_statistics.txt",
                  "simulation_summary.txt", "trajectory_analysis.json"):
         assert (runs["port_dir"] / name).is_file(), name
@@ -68,7 +96,31 @@ def test_artifacts_and_statistics(runs):
     assert lines(runs["port_dir"]) == lines(runs["jax_dir"])
 
 
+def test_frames_match(runs):
+    check_frames(runs)
+
+
+def test_artifacts_and_statistics(runs):
+    check_artifacts_and_statistics(runs)
+
+
 def test_labeled_ply_matches(runs):
+    check_labeled_ply(runs)
+
+
+def test_culled_frames_match(culled_run):
+    check_frames(culled_run)
+
+
+def test_culled_artifacts_and_statistics(culled_run):
+    check_artifacts_and_statistics(culled_run)
+
+
+def test_culled_labeled_ply_matches(culled_run):
+    check_labeled_ply(culled_run)
+
+
+def check_labeled_ply(runs):
     pj, pp = runs["jax_dir"] / PLY, runs["port_dir"] / PLY
     head = lambda p: p.read_bytes().split(b"end_header")[0]
     assert head(pp) == head(pj)
