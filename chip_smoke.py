@@ -192,13 +192,13 @@ def culled_vs_plain(asset, o, d, t_max: float, label: str, oracle: bool = True,
 
     from ipcgen_tpu_torch.ops import _kernels
     from ipcgen_tpu_torch.ops.raycast import raycast_brute_components
-    from ipcgen_tpu_torch.ops.raycast_culled import GROUP, raycast_culled_plain, t_init_for
+    from ipcgen_tpu_torch.ops.raycast_culled import raycast_culled_plain, t_init_for
 
     o, d = o.contiguous(), d.contiguous()
     args = (o, d, asset.tri_data, asset.block_lo, asset.block_hi,
             asset.super_lo, asset.super_hi, asset.super_factor, t_init_for(t_max))
-    t_k, s_k = _kernels.raycast_culled_cuda(*args, group=GROUP)
-    t_p, s_p = raycast_culled_plain(*args, group=GROUP)
+    t_k, s_k = _kernels.raycast_culled_cuda(*args)
+    t_p, s_p = raycast_culled_plain(*args)
     torch.cuda.synchronize()
     pairs = [("plain", t_p, s_p)]
     if oracle:
@@ -210,9 +210,8 @@ def culled_vs_plain(asset, o, d, t_max: float, label: str, oracle: bool = True,
         res[f"{name}_t_mismatch"] = int((t_k != t_x).sum())
     both = (s_k >= 0) & (s_p >= 0)
     res["max_abs_err"] = float((t_k - t_p).abs()[both].max()) if both.any() else 0.0
-    res["ms"] = time_ms(lambda: _kernels.raycast_culled_cuda(*args, group=GROUP),
-                        kernel_reps)
-    res["plain_ms"] = time_ms(lambda: raycast_culled_plain(*args, group=GROUP), 1)
+    res["ms"] = time_ms(lambda: _kernels.raycast_culled_cuda(*args), kernel_reps)
+    res["plain_ms"] = time_ms(lambda: raycast_culled_plain(*args), 1)
     log(f"[culled] {label}: {res}")
     for name, _, _ in pairs:
         require(res[f"{name}_slot_mismatch"] == 0 and res[f"{name}_t_mismatch"] == 0,
@@ -226,6 +225,7 @@ def phase_culled_kernel_check(device, asset) -> dict:
     from ipcgen_tpu_torch.models.lidar_intrinsics import Indoor8LineLidarIntrinsics
     from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
     from ipcgen_tpu_torch.sim.scan import scan_rays
+    from ipcgen_tpu_torch.utils.synthetic import hardware_scene
 
     o, d, _ = scan_rays(Indoor8LineLidarIntrinsics.create_dense_32line(),
                         room_poses(2, seed=1), None, device, backend="culled")
@@ -237,29 +237,6 @@ def phase_culled_kernel_check(device, asset) -> dict:
         room, torch.from_numpy(origins).to(device), torch.from_numpy(dirs).to(device),
         20.0, "cluttered room 8k (t_max 20)")
     return out
-
-
-def hardware_scene(n: int):
-    """The cluttered room and rays of tests/test_tpu_hardware.py:31-50: a
-    4 x 3 x 2.5 m room with six boxes (seed 0), rays from the centre, the
-    last quarter from origins outside the room."""
-    from ipcgen_tpu.containers.mesh import TriMesh
-
-    rng = np.random.default_rng(0)
-    room = TriMesh.box(center=(2, 1.5, 1.25), size=(4, 3, 2.5), inward=True)
-    vs, ts, off = [room.vertices], [room.triangles], len(room.vertices)
-    for _ in range(6):
-        c = rng.uniform([0.6, 0.6, 0.2], [3.4, 2.4, 1.0])
-        b = TriMesh.box(center=tuple(c), size=tuple(rng.uniform(0.2, 0.8, 3)))
-        vs.append(b.vertices)
-        ts.append(b.triangles + off)
-        off += len(b.vertices)
-    origins = np.tile(np.array([2, 1.5, 1.0], np.float32), (n, 1))
-    dirs = rng.normal(size=(n, 3)).astype(np.float32)
-    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-    origins[3 * n // 4:] = rng.uniform(-12, -6, (n // 4, 3)).astype(np.float32)
-    return (np.concatenate(vs).astype(np.float32),
-            np.concatenate(ts).astype(np.int32), origins, dirs)
 
 
 # ---------------------------------------------------------------------------
@@ -558,7 +535,7 @@ def phase_culled_main_path(device, work: Path, card: str, mesh_path: Path,
                              oracle=False, kernel_reps=5)
     full_ms = time_ms(lambda: _kernels.raycast_culled_cuda(
         o, d, asset.tri_data, asset.block_lo, asset.block_hi, asset.super_lo,
-        asset.super_hi, asset.super_factor, max_range, group=GROUP), 3)
+        asset.super_hi, asset.super_factor, max_range), 3)
     log(f"[culled-main] culled kernel over all {o.shape[0]} rays of the run: "
         f"{full_ms:.3f} ms")
     return dict(launches=launches, wall_s=wall, rays=rays, frames=w, stages=stages,

@@ -8,8 +8,9 @@
 // triangles of every surviving leaf block.  The plain PyTorch version of the
 // same function is raycast_culled_plain in ipcgen_tpu_torch/ops/raycast_culled.py.
 //
-// Layout here: one thread per ray, a CUDA block of G consecutive rays (the
-// TPU's 1024-ray tile becomes G = blockDim.x <= 256).  A block visits a super
+// Layout here: one thread per ray, a CUDA block of kGroup = 256 consecutive
+// rays in place of the TPU's 1024-ray tile (the plain version groups its rays
+// by GROUP in ops/raycast_culled.py, the same number).  A block visits a super
 // or leaf block when any of its rays passes the slab test (__syncthreads_or),
 // so control flow stays uniform per CUDA block; a visited leaf block's
 // (9, TB) panel (v0, e1, e2 components; 4.6 KB at TB = 128) is staged in
@@ -22,7 +23,7 @@
 // (ray, triangle) of a visited block, with the 9 coefficients read from shared
 // memory as warp-wide broadcasts.  It is bound by fp32 instruction throughput
 // (the products cannot be fused into FMAs, see below), not by device memory:
-// each panel is read once per group of G rays.  wgmma, TMA panel rings and
+// each panel is read once per group of kGroup rays.  wgmma, TMA panel rings and
 // persistent blocks are later work.
 //
 // Bit-exactness against the block-scan oracle (raycast_asset_xla in
@@ -48,7 +49,7 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kGroup = 256;       // rays per CUDA block, one per thread
 constexpr int kPanelRows = 9;      // v0, e1, e2 components of tri_data rows 0..8
 constexpr int kTriRows = 16;       // rows per tri_data block
 constexpr float kMtEps = 1e-9f;    // determinant guard (MT_EPS)
@@ -114,7 +115,7 @@ __device__ __forceinline__ float moller_trumbore(const Ray& r, const float* c,
   return hit ? t : INFINITY;
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kGroup)
 raycast_culled_kernel(const float* __restrict__ origins,   // (R, 3)
                       const float* __restrict__ dirs,      // (R, 3)
                       const float* __restrict__ tri_data,  // (NB, 16, TB)
@@ -126,7 +127,7 @@ raycast_culled_kernel(const float* __restrict__ origins,   // (R, 3)
                       int* __restrict__ slot_out,          // (R)
                       int n_rays, int nb, int ns, int sf, int tb, float t_init) {
   extern __shared__ float panel[];  // kPanelRows * tb, row-major as tri_data
-  const long long ray = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long ray = (long long)blockIdx.x * kGroup + threadIdx.x;
   const bool active = ray < n_rays;
   Ray r = {};
   if (active) {
@@ -153,7 +154,7 @@ raycast_culled_kernel(const float* __restrict__ origins,   // (R, 3)
       // Also orders the previous panel's reads before this block's staging.
       if (!__syncthreads_or(hb)) continue;
       const float* src = tri_data + (size_t)b * kTriRows * tb;
-      for (int i = threadIdx.x; i < kPanelRows * tb; i += blockDim.x) {
+      for (int i = threadIdx.x; i < kPanelRows * tb; i += kGroup) {
         panel[i] = src[i];
       }
       __syncthreads();
@@ -184,8 +185,8 @@ int raycast_culled_launch(const void* origins, const void* dirs,
                           const void* block_hi, const void* super_lo,
                           const void* super_hi, void* t_out, void* slot_out,
                           int n_rays, int nb, int ns, int sf, int tb,
-                          float t_init, int group, void* stream) {
-  if (group <= 0 || group > kMaxThreads || n_rays <= 0 || tb <= 0 || sf <= 0) {
+                          float t_init, void* stream) {
+  if (n_rays <= 0 || tb <= 0 || sf <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = (size_t)kPanelRows * tb * sizeof(float);
@@ -195,8 +196,8 @@ int raycast_culled_launch(const void* origins, const void* dirs,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int blocks = (n_rays + group - 1) / group;
-  raycast_culled_kernel<<<blocks, group, smem, (cudaStream_t)stream>>>(
+  const int blocks = (n_rays + kGroup - 1) / kGroup;
+  raycast_culled_kernel<<<blocks, kGroup, smem, (cudaStream_t)stream>>>(
       (const float*)origins, (const float*)dirs, (const float*)tri_data,
       (const float*)block_lo, (const float*)block_hi, (const float*)super_lo,
       (const float*)super_hi, (float*)t_out, (int*)slot_out, n_rays, nb, ns,

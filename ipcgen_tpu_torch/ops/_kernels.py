@@ -52,7 +52,7 @@ _LIBS = {}
 _C_PTR, _C_INT, _C_FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "raycast_pairs": [_C_PTR] * 7 + [_C_INT] * 4 + [_C_FLOAT, _C_PTR],
-    "raycast_culled": [_C_PTR] * 9 + [_C_INT] * 5 + [_C_FLOAT, _C_INT, _C_PTR],
+    "raycast_culled": [_C_PTR] * 9 + [_C_INT] * 5 + [_C_FLOAT, _C_PTR],
 }
 
 
@@ -182,15 +182,13 @@ def raycast_pairs_cuda(f, trif, offsets, blocks, walk_all, t_init: float,
 
 
 def raycast_culled_cuda(origins, dirs, tri_data, block_lo, block_hi,
-                        super_lo, super_hi, super_factor: int, t_init: float,
-                        group: int = 256):
+                        super_lo, super_hi, super_factor: int, t_init: float):
     """Launch ``raycast_culled_kernel`` (csrc/raycast_culled.cu).
 
     origins, dirs (R, 3) float32; tri_data (NB, 16, TB) float32; block_lo,
     block_hi (NB, 3) and super_lo, super_hi (NS, 3) float32 with
-    NS * super_factor >= NB; all on one CUDA device.  ``group`` rays share
-    one CUDA block.  Returns (t (R,) float32, +inf on miss, slot (R,) int32,
-    -1 on miss).
+    NS * super_factor >= NB; all on one CUDA device.  Returns (t (R,)
+    float32, +inf on miss, slot (R,) int32, -1 on miss).
     """
     device = origins.device
     if device.type != "cuda":
@@ -214,8 +212,6 @@ def raycast_culled_cuda(origins, dirs, tri_data, block_lo, block_hi,
         raise ValueError(f"super_lo/super_hi: expected ({ns}, 3)")
     if super_factor <= 0 or ns * super_factor < nb:
         raise ValueError(f"{ns} supers of {super_factor} do not cover {nb} blocks")
-    if not 0 < group <= 256:
-        raise ValueError(f"group must be in 1..256, got {group}")
     t = torch.empty(n, dtype=torch.float32, device=device)
     slot = torch.empty(n, dtype=torch.int32, device=device)
     if n == 0:
@@ -224,5 +220,5 @@ def raycast_culled_cuda(origins, dirs, tri_data, block_lo, block_hi,
             origins.data_ptr(), dirs.data_ptr(), tri_data.data_ptr(),
             block_lo.data_ptr(), block_hi.data_ptr(), super_lo.data_ptr(),
             super_hi.data_ptr(), t.data_ptr(), slot.data_ptr(), n, nb, ns,
-            int(super_factor), tb, float(t_init), int(group))
+            int(super_factor), tb, float(t_init))
     return t, slot

@@ -33,7 +33,7 @@ from ipcgen_tpu_torch.ops.geometry import moller_trumbore_components, ray_aabb_h
 from ipcgen_tpu_torch.ops.raycast import RaycastResult, finalize_result
 from ipcgen_tpu_torch.ops.scene_asset import SceneAsset
 
-GROUP = 256  # rays per group = threads per CUDA block
+GROUP = 256  # rays per group: kGroup, the threads of one CUDA block
 
 
 def t_init_for(t_max: float) -> float:
@@ -42,40 +42,39 @@ def t_init_for(t_max: float) -> float:
 
 
 def raycast_culled_plain(origins, dirs, tri_data, block_lo, block_hi,
-                         super_lo, super_hi, super_factor: int, t_init: float,
-                         group: int = GROUP):
+                         super_lo, super_hi, super_factor: int, t_init: float):
     """The kernel's function in torch ops; returns (t (R,) +inf on miss,
     packed slot (R,) int32, -1 on miss).
 
     The groups run side by side: at each super and leaf block, every group
     that still visits it does so with its own running best, which is what
     each group would do on its own.  Padded rays (to a multiple of
-    ``group``) start far outside the scene and point up, as in the JAX
+    ``GROUP``) start far outside the scene and point up, as in the JAX
     package.
     """
     dev = origins.device
     n = origins.shape[0]
     nb, _, tb = tri_data.shape
     ns = super_lo.shape[0]
-    pad = (-n) % group
+    pad = (-n) % GROUP
     if pad:
         origins = torch.cat([origins, torch.full((pad, 3), 1e8, device=dev)])
         dirs = torch.cat([dirs, torch.tensor([[0.0, 0.0, 1.0]], device=dev)
                           .expand(pad, 3)])
-    n_groups = origins.shape[0] // group
+    n_groups = origins.shape[0] // GROUP
     ox, oy, oz = origins[:, 0], origins[:, 1], origins[:, 2]
     dx, dy, dz = dirs[:, 0], dirs[:, 1], dirs[:, 2]
     ix, iy, iz = 1.0 / dx, 1.0 / dy, 1.0 / dz
-    best_t = torch.full((n_groups * group,), t_init, dtype=torch.float32, device=dev)
-    best_i = torch.full((n_groups * group,), -1, dtype=torch.int32, device=dev)
-    lane = torch.arange(group, device=dev)
+    best_t = torch.full((n_groups * GROUP,), t_init, dtype=torch.float32, device=dev)
+    best_i = torch.full((n_groups * GROUP,), -1, dtype=torch.int32, device=dev)
+    lane = torch.arange(GROUP, device=dev)
 
     def visiting(rows, lo, hi):
         """Per group of ``rows`` (None: all rays), does any ray pass the
         slab test?"""
         ray = [x if rows is None else x[rows]
                for x in (ox, oy, oz, ix, iy, iz, best_t)]
-        return ray_aabb_hit(*ray[:6], lo, hi, ray[6]).view(-1, group).any(dim=1)
+        return ray_aabb_hit(*ray[:6], lo, hi, ray[6]).view(-1, GROUP).any(dim=1)
 
     all_groups = torch.arange(n_groups, device=dev)
     for s in range(ns):
@@ -84,11 +83,11 @@ def raycast_culled_plain(origins, dirs, tri_data, block_lo, block_hi,
             continue
         groups = all_groups[visit]
         for b in range(s * super_factor, min((s + 1) * super_factor, nb)):
-            rows = (groups[:, None] * group + lane).reshape(-1)
+            rows = (groups[:, None] * GROUP + lane).reshape(-1)
             visit_b = visiting(rows, block_lo[b], block_hi[b])
             if not bool(visit_b.any()):
                 continue
-            rows = (groups[visit_b][:, None] * group + lane).reshape(-1)
+            rows = (groups[visit_b][:, None] * GROUP + lane).reshape(-1)
             blk = tri_data[b]
             t = moller_trumbore_components(
                 ox[rows, None], oy[rows, None], oz[rows, None],
@@ -105,26 +104,24 @@ def raycast_culled_plain(origins, dirs, tri_data, block_lo, block_hi,
 
 
 def raycast_culled_components(origins, dirs, tri_data, block_lo, block_hi,
-                              super_lo, super_hi, *, block_size: int,
-                              super_factor: int, t_max: float = np.inf):
+                              super_lo, super_hi, *, super_factor: int,
+                              t_max: float = np.inf):
     """Culled raycast over raw asset components; returns (t, packed slot).
+    The leaf block size is ``tri_data.shape[2]``.
 
     CUDA tensors go to the kernel, CPU tensors to its plain version; any
     other device raises.
     """
     origins = origins.float().contiguous()
     dirs = dirs.float().contiguous()
-    if tri_data.shape[2] != block_size:
-        raise ValueError(f"tri_data has {tri_data.shape[2]} lanes, "
-                         f"block_size is {block_size}")
     args = (origins, dirs, tri_data, block_lo, block_hi, super_lo, super_hi,
             super_factor, t_init_for(t_max))
     if origins.device.type == "cuda":
         from ipcgen_tpu_torch.ops import _kernels
 
-        return _kernels.raycast_culled_cuda(*args, group=GROUP)
+        return _kernels.raycast_culled_cuda(*args)
     if origins.device.type == "cpu":
-        return raycast_culled_plain(*args, group=GROUP)
+        return raycast_culled_plain(*args)
     raise ValueError(f"raycast_culled: unsupported device {origins.device}")
 
 
@@ -135,7 +132,7 @@ def raycast_asset_culled(origins, dirs, asset: SceneAsset,
     dirs = dirs.float()
     t, slot = raycast_culled_components(
         origins, dirs, asset.tri_data, asset.block_lo, asset.block_hi,
-        asset.super_lo, asset.super_hi, block_size=asset.block_size,
-        super_factor=asset.super_factor, t_max=t_max,
+        asset.super_lo, asset.super_hi, super_factor=asset.super_factor,
+        t_max=t_max,
     )
     return finalize_result(origins, dirs, t, slot, asset)

@@ -1,4 +1,5 @@
-"""Synthetic furnished room: a mesh and a matching S3DIS-format TLS room.
+"""Synthetic scenes: a furnished room with a matching S3DIS-format TLS room,
+and the small cluttered room the raycast kernels are checked on.
 
 ``synthetic_room`` is the mesh of ``scripts/bench_raycast.py:15-59`` (an
 inward 6 x 5 x 2.5 m box with 12 furniture boxes, 1->4 subdivided towards a
@@ -6,6 +7,10 @@ target triangle count), copied here so that the port and ``chip_smoke.py``
 need nothing outside the package.  ``write_s3dis_room`` samples points on the
 same surfaces and writes them in the S3DIS layout the label path reads: the
 room txt (``x y z r g b``) plus ``Annotations/{class}_{k}.txt``.
+
+``cluttered_room``, ``hardware_rays`` and ``hardware_scene`` are the scene
+and rays of ``tests/test_tpu_hardware.py:31-50``, shared by ``chip_smoke.py``
+and the port's tests.
 """
 
 from __future__ import annotations
@@ -138,3 +143,41 @@ def write_s3dis_room(room_dir, n_points: int = 600_000, seed: int = 0) -> int:
     np.savetxt(room_dir / f"{room_dir.name}.txt", room,
                fmt="%.3f %.3f %.3f %d %d %d")
     return len(room)
+
+
+def cluttered_room(rng: np.random.Generator, n_boxes: int = 5):
+    """An inward 4 x 3 x 2.5 m room with ``n_boxes`` random boxes drawn from
+    ``rng`` (the scene of tests/test_raycast_mxu.py:22-34); (vertices
+    float32, triangles int32)."""
+    from ipcgen_tpu.containers.mesh import TriMesh
+
+    room = TriMesh.box(center=(2, 1.5, 1.25), size=(4, 3, 2.5), inward=True)
+    vs, ts = [room.vertices], [room.triangles]
+    off = len(room.vertices)
+    for _ in range(n_boxes):
+        c = rng.uniform([0.6, 0.6, 0.2], [3.4, 2.4, 1.0])
+        b = TriMesh.box(center=tuple(c), size=tuple(rng.uniform(0.2, 0.8, 3)))
+        vs.append(b.vertices)
+        ts.append(b.triangles + off)
+        off += len(b.vertices)
+    return (np.concatenate(vs).astype(np.float32),
+            np.concatenate(ts).astype(np.int32))
+
+
+def hardware_rays(rng: np.random.Generator, n: int):
+    """``n`` unit rays from the room centre, the last quarter from origins
+    outside the room (tests/test_tpu_hardware.py:45-50); (origins, dirs)
+    float32."""
+    origins = np.tile(np.array([2, 1.5, 1.0], np.float32), (n, 1))
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    origins[3 * n // 4:] = rng.uniform(-12, -6, (n // 4, 3)).astype(np.float32)
+    return origins, dirs
+
+
+def hardware_scene(n: int):
+    """The cluttered room (seed 0, six boxes) and ``n`` of its rays:
+    (vertices, triangles, origins, dirs)."""
+    rng = np.random.default_rng(0)
+    verts, tris = cluttered_room(rng, n_boxes=6)
+    return verts, tris, *hardware_rays(rng, n)

@@ -1,5 +1,5 @@
-"""The CUDA kernels on the card, plus the jax-free scenes and checks that the
-CPU parity tests share.
+"""The CUDA kernels on the card, plus the jax-free checks that the CPU parity
+tests share (their scenes are in ``ipcgen_tpu_torch/utils/synthetic.py``).
 
 This file imports no jax, so it also runs on the GPU host, which has none:
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q`` (the repository
@@ -22,10 +22,10 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)  # six pytest-xdist workers share the CPU cores
 
-from ipcgen_tpu.containers.mesh import TriMesh  # noqa: E402
 from ipcgen_tpu_torch.ops import raycast_pairs as pairs  # noqa: E402
 from ipcgen_tpu_torch.ops.raycast import raycast_asset  # noqa: E402
 from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset  # noqa: E402
+from ipcgen_tpu_torch.utils.synthetic import cluttered_room, hardware_scene  # noqa: E402
 
 
 @pytest.fixture
@@ -37,39 +37,6 @@ def cuda_device():
 
 def t_(x):
     return torch.from_numpy(np.ascontiguousarray(x))
-
-
-def cluttered_room(rng, n_boxes=5):
-    """The scene of tests/test_raycast_mxu.py:22-34."""
-    room = TriMesh.box(center=(2, 1.5, 1.25), size=(4, 3, 2.5), inward=True)
-    vs, ts = [room.vertices], [room.triangles]
-    off = len(room.vertices)
-    for _ in range(n_boxes):
-        c = rng.uniform([0.6, 0.6, 0.2], [3.4, 2.4, 1.0])
-        b = TriMesh.box(center=tuple(c), size=tuple(rng.uniform(0.2, 0.8, 3)))
-        vs.append(b.vertices)
-        ts.append(b.triangles + off)
-        off += len(b.vertices)
-    return (np.concatenate(vs).astype(np.float32),
-            np.concatenate(ts).astype(np.int32))
-
-
-def hardware_rays(rng, n):
-    """The ray layout of tests/test_tpu_hardware.py:45-50: rays from the room
-    centre, the last quarter from origins outside the room."""
-    origins = np.tile(np.array([2, 1.5, 1.0], np.float32), (n, 1))
-    dirs = rng.normal(size=(n, 3)).astype(np.float32)
-    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-    origins[3 * n // 4:] = rng.uniform(-12, -6, (n // 4, 3)).astype(np.float32)
-    return origins, dirs
-
-
-def hardware_scene(n):
-    """The cluttered room and rays of tests/test_tpu_hardware.py:31-50
-    (seed 0, six boxes)."""
-    rng = np.random.default_rng(0)
-    verts, tris = cluttered_room(rng, n_boxes=6)
-    return verts, tris, *hardware_rays(rng, n)
 
 
 def t_max_scene():
@@ -286,5 +253,3 @@ def test_culled_wrapper_rejects_bad_inputs(cuda_device):
         _kernels.raycast_culled_cuda(*good[:2], tri[:, :9].contiguous(), *good[3:])
     with pytest.raises(ValueError):  # one super of one block cannot hold two
         _kernels.raycast_culled_cuda(*good[:7], 1, 1e30)
-    with pytest.raises(ValueError):
-        _kernels.raycast_culled_cuda(*good, group=512)

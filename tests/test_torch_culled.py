@@ -37,7 +37,8 @@ from ipcgen_tpu_torch.ops.raycast import raycast_asset  # noqa: E402
 from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset  # noqa: E402
 from ipcgen_tpu_torch.sim import simulator as port_sim  # noqa: E402
 
-from test_torch_cuda import hardware_scene, same_result, t_, t_max_scene  # noqa: E402
+from ipcgen_tpu_torch.utils.synthetic import hardware_scene  # noqa: E402
+from test_torch_cuda import same_result, t_, t_max_scene  # noqa: E402
 
 
 def soup_case():
@@ -91,7 +92,7 @@ def case(request):
     o, d = t_(origins), t_(dirs)
     slots = culled.raycast_culled_components(
         o, d, pa.tri_data, pa.block_lo, pa.block_hi, pa.super_lo, pa.super_hi,
-        block_size=pa.block_size, super_factor=pa.super_factor, t_max=t_max)
+        super_factor=pa.super_factor, t_max=t_max)
     return dict(name=request.param, ja=ja, origins=origins, dirs=dirs,
                 t_max=t_max, slots=slots,
                 culled=raycast_asset(o, d, pa, backend="culled", t_max=t_max),
@@ -191,7 +192,7 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     with pytest.raises(ValueError):
         culled.raycast_culled_components(
             meta, meta, asset.tri_data.to("meta"), *(torch.empty((1, 3), device="meta"),) * 4,
-            block_size=asset.block_size, super_factor=asset.super_factor)
+            super_factor=asset.super_factor)
     comps = (asset.tri_data, asset.block_lo, asset.block_hi, asset.super_lo,
              asset.super_hi)
     with pytest.raises(ValueError):
@@ -212,6 +213,8 @@ def test_kernel_build_commands(name):
         assert "-fmad=false" in cmd
         src = (_kernels.CSRC / f"{name}.cu").read_text()
         assert "__frcp" not in src and "__fdividef" not in src
+        # The kernel's rays per CUDA block are the plain version's groups.
+        assert f"constexpr int kGroup = {culled.GROUP};" in src
     lib = _kernels._library_path(name)
     assert lib.parent == _kernels.BUILD_DIR and name in lib.name
     assert len({_kernels._library_path(n) for n in _kernels.SOURCES}) == len(_kernels.SOURCES)

@@ -31,9 +31,9 @@ from ipcgen_tpu_torch.ops.raycast import (  # noqa: E402
     raycast_brute,
 )
 from ipcgen_tpu_torch.ops.scene_asset import SceneAsset, build_scene_asset  # noqa: E402
+from ipcgen_tpu_torch.utils.synthetic import cluttered_room  # noqa: E402
 
 from test_torch_cuda import (  # noqa: E402
-    cluttered_room,
     contract,
     fuzz_check,
     np_res,

@@ -42,8 +42,7 @@ from ipcgen_tpu.trajectory.waypoint import waypoints_to_pose_batch  # noqa: E402
 from ipcgen_tpu_torch.models import beams, from_reference  # noqa: E402
 from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset  # noqa: E402
 from ipcgen_tpu_torch.sim import scan as port_scan  # noqa: E402
-
-from test_torch_cuda import cluttered_room  # noqa: E402
+from ipcgen_tpu_torch.utils.synthetic import cluttered_room  # noqa: E402
 
 
 def profiles():

@@ -10,6 +10,9 @@ edge-tie differences); the labeled PLY header byte-identical; on rows joined
 at 0.1 mm (as sim_scene.py:34-65 joins), >= 99 % of the port's rows matched
 and their labels identical except on near-ties (within 0.5 mm) that the
 JAX package's float32 exact 1-NN resolves inexactly (see the test).
+When a comparison fails, its message holds both runs' planned waypoints
+and per-frame point counts (``diagnosis``), so a failure shows whether the
+runs planned different paths or scanned the same path differently.
 
 The port configured with ``raycast_engine.backend: pallas`` (its culled
 Moller-Trumbore path) is held to the same JAX run at the same tolerances:
@@ -17,6 +20,7 @@ off the TPU the JAX package's "auto" is its "xla" backend, the same
 function as "pallas".
 """
 
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -39,6 +43,24 @@ KW = dict(scene_name="office_1", num_waypoints=4, use_dense_lidar=True,
 PLY = "combined_pointcloud_with_label.ply"
 
 
+@contextmanager
+def planned_waypoints(store: list):
+    """Append each auto-planned trajectory, as (x, y, z, yaw) rows, to
+    ``store``: both packages plan with the JAX package's host planner."""
+    from ipcgen_tpu.trajectory import AutoTrajectoryGenerator
+
+    real = AutoTrajectoryGenerator.generate_optimal_trajectory
+
+    def record(self, *args, **kwargs):
+        waypoints, info = real(self, *args, **kwargs)
+        store.append([(w.x, w.y, w.z, w.yaw) for w in waypoints])
+        return waypoints, info
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(AutoTrajectoryGenerator, "generate_optimal_trajectory", record)
+        yield
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     from ipcgen_tpu.sim.simulator import run_single_scene_simulation as jax_run
@@ -47,12 +69,16 @@ def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("slice")
     mesh_path = root / "mesh_dense.ply"
     TriMesh.box(center=tuple(ROOM / 2), size=tuple(ROOM), inward=True).save(mesh_path)
-    jax_scene = jax_run(str(mesh_path), output_base_dir=str(root / "jax"), **KW)
-    port_scene = port_run(str(mesh_path), output_base_dir=str(root / "port"),
-                          device="cpu", **KW)
+    jax_plan, port_plan = [], []
+    with planned_waypoints(jax_plan):
+        jax_scene = jax_run(str(mesh_path), output_base_dir=str(root / "jax"), **KW)
+    with planned_waypoints(port_plan):
+        port_scene = port_run(str(mesh_path), output_base_dir=str(root / "port"),
+                              device="cpu", **KW)
     assert jax.default_backend() == "cpu"  # so the JAX run's "auto" is "xla"
     return dict(jax=jax_scene, port=port_scene, root=root,
-                jax_dir=root / "jax" / "office_1", port_dir=root / "port" / "office_1")
+                jax_dir=root / "jax" / "office_1", port_dir=root / "port" / "office_1",
+                jax_plan=jax_plan, port_plan=port_plan)
 
 
 @pytest.fixture(scope="module")
@@ -70,18 +96,31 @@ def culled_run(runs):
     sim = S3DISSimulator(config, use_dense_lidar=True, use_blk2go=False, device="cpu")
     assert sim.backend == "culled"
     out = runs["root"] / "culled" / "office_1"
-    scene = sim.run_auto_simulation(str(runs["root"] / "mesh_dense.ply"),
-                                    num_waypoints=KW["num_waypoints"],
-                                    output_dir=out, scene_name="office_1")
-    return dict(runs, port=scene, port_dir=out)
+    plan = []
+    with planned_waypoints(plan):
+        scene = sim.run_auto_simulation(str(runs["root"] / "mesh_dense.ply"),
+                                        num_waypoints=KW["num_waypoints"],
+                                        output_dir=out, scene_name="office_1")
+    return dict(runs, port=scene, port_dir=out, port_plan=plan)
+
+
+def diagnosis(runs) -> str:
+    """Both runs' planned waypoints and per-frame point counts."""
+    lines = []
+    for side in ("jax", "port"):
+        frames = runs[side].frames
+        lines.append(f"{side} planned {np.round(runs[side + '_plan'], 6).tolist()}")
+        lines.append(f"{side} points per frame {[len(f.points) for f in frames]}")
+    return "\n".join(lines)
 
 
 def check_frames(runs):
     jf, pf = runs["jax"].frames, runs["port"].frames
-    assert len(pf) == len(jf) > 0
+    assert len(pf) == len(jf) > 0, diagnosis(runs)
     for a, b in zip(jf, pf):
         na, nb = len(a.points), len(b.points)
-        assert abs(na - nb) <= 0.005 * na, (a.frame_index, na, nb)
+        assert abs(na - nb) <= 0.005 * na, \
+            f"frame {a.frame_index}: {na} vs {nb} points\n{diagnosis(runs)}"
 
 
 def check_artifacts_and_statistics(runs):
@@ -93,7 +132,7 @@ def check_artifacts_and_statistics(runs):
         return [ln for ln in (d / "simulation_statistics.txt").read_text().splitlines()
                 if "time" not in ln.lower() and "per second" not in ln.lower()]
 
-    assert lines(runs["port_dir"]) == lines(runs["jax_dir"])
+    assert lines(runs["port_dir"]) == lines(runs["jax_dir"]), diagnosis(runs)
 
 
 def test_frames_match(runs):
@@ -127,7 +166,7 @@ def check_labeled_ply(runs):
     jx, jc, js, ji = read_labeled_ply(pj)
     px, pc, ps, pi = read_labeled_ply(pp)
     idx, matched = _exact_coord_join(px, jx)
-    assert matched.mean() >= 0.99, matched.mean()
+    assert matched.mean() >= 0.99, f"{matched.mean()} joined\n{diagnosis(runs)}"
     rows = np.flatnonzero(matched)
     same = (ps[rows] == js[idx[rows]]) & (pi[rows] == ji[idx[rows]]) \
         & np.all(pc[rows] == jc[idx[rows]], axis=1)
