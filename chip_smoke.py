@@ -47,7 +47,25 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    points and normals, and the kernel its plain version bit for bit.  Every
    frame's point count must agree with the pair kernel's BLK2GO run (same
    seed, so the same waypoints and rays) within 1 %.
+7. the kernel probe (``python -m ipcgen_tpu_torch.kernel_probe``, the port
+   of ``scripts/kernel_probe.py``) on the 159,744-triangle room with its
+   2.56 M patch-ordered dense-32 rays: every mode of ``call``, ``grid32``
+   and ``flat`` through ``kernel_probe.run``, launched and timed with CUDA
+   events, must launch all three probe kernels.  Each is held against its
+   plain version on the first 64 tiles plus up to 8 overflowed ones (result
+   modes: same slot >= 99.99 %, t within 1e-5 relative; floor modes: equal
+   bits), recip within 1e-6 of full, and the result modes and ``flat``
+   against the pair kernel on every ray (bf16: 99.9 % and t within the
+   raycast contract's 5 mm, its split's rounding).  Runs after phase 5, on
+   the same room.
+8. raycast occupancy (``trajectory.occupancy_mode: raycast``):
+   ``obstacle_mask`` on the planning grid of the main room through the pair
+   kernel must equal the brute oracle's mask on >= 99.9 % of cells.  Runs
+   inside phase 4, after the two pair runs.
 
+Every kernel's record carries its bound: the larger of the bytes it must
+move over 3.35 TB/s and the fp32 operations these rays need (exact
+candidate lists, or the culled kernel's block visits) over 67 TFLOP/s.
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Needs ``torch.cuda.is_available()``.
 """
@@ -68,6 +86,17 @@ TRIANGLES_KERNEL_CHECK = 200_000  # -> 159,744 triangles
 TRIANGLES_MAIN = 700_000  # -> 638,976 triangles
 TLS_POINTS = 600_000
 MAX_RANGE = 25.0
+# The card's peaks (NVIDIA H100 SXM data sheet): fp32 outside the tensor
+# cores, and device memory.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# fp32 operations per ray-triangle test, counted from the kernels' sources:
+# 25 FMAs (csrc/raycast_pairs.cu, csrc/raycast_probe.cu), 75 for the probe's
+# bf16 split, and Moller-Trumbore's 45 products, sums and differences plus
+# one divide (csrc/raycast_culled.cu).
+FLOPS_PER_TEST = {"pairs": 50, "bf16": 150, "culled": 46}
+PROBE_SUBSET_TILES = 64
+PROBE_SUBSET_OVERFLOWED = 8
 
 
 def log(msg: str) -> None:
@@ -79,19 +108,48 @@ def require(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the fp32 rate."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes=int(n_bytes), flops=float(flops))
+
+
+def exact_list_tests(o, d, asset, t_max: float, tile: int, n_sub: int) -> int:
+    """Ray-triangle tests of exact candidate lists for these rays: the
+    prepass rerun with vmax = NB and every block group, so no tile
+    overflows, in ``tile``-ray tiles of ``n_sub`` subtiles."""
+    import torch
+
+    from ipcgen_tpu_torch.ops.raycast_pairs import candidate_blocks, subtile_pairs
+
+    pad = (-o.shape[0]) % tile
+    if pad:  # as prepare_pairs pads: the last ray repeated
+        o = torch.cat([o, o[-1:].expand(pad, 3)])
+        d = torch.cat([d, d[-1:].expand(pad, 3)])
+    nb, tb = asset.num_blocks, asset.tri_data.shape[2]
+    ids, counts, ovf, masks = candidate_blocks(
+        o, d, asset.block_lo, asset.block_hi, t_max=t_max, vmax=nb, group=8,
+        gmax=-(-nb // 8), tile=tile, n_sub=n_sub)
+    require(not bool(ovf.any()), "the exact prepass overflowed")
+    if n_sub == 1:
+        return int(counts.sum()) * tile * tb
+    _, blocks, _ = subtile_pairs(ids, counts, ovf, masks, n_sub)
+    return blocks.numel() * (tile // n_sub) * tb
 
 
 # ---------------------------------------------------------------------------
 # Ray sets
 # ---------------------------------------------------------------------------
 def room_poses(n: int, seed: int) -> np.ndarray:
-    from ipcgen_tpu.trajectory import Waypoint
-    from ipcgen_tpu.trajectory.waypoint import waypoints_to_pose_batch
+    from ipcgen_tpu_torch.trajectory import Waypoint
+    from ipcgen_tpu_torch.trajectory.waypoint import waypoints_to_pose_batch
 
     rng = np.random.default_rng(seed)
     return waypoints_to_pose_batch([
@@ -194,11 +252,14 @@ def culled_vs_plain(asset, o, d, t_max: float, label: str, oracle: bool = True,
     from ipcgen_tpu_torch.ops.raycast import raycast_brute_components
     from ipcgen_tpu_torch.ops.raycast_culled import raycast_culled_plain, t_init_for
 
+    from ipcgen_tpu_torch.ops.raycast_culled import GROUP
+
     o, d = o.contiguous(), d.contiguous()
     args = (o, d, asset.tri_data, asset.block_lo, asset.block_hi,
             asset.super_lo, asset.super_hi, asset.super_factor, t_init_for(t_max))
     t_k, s_k = _kernels.raycast_culled_cuda(*args)
-    t_p, s_p = raycast_culled_plain(*args)
+    stats = {}
+    t_p, s_p = raycast_culled_plain(*args, stats=stats)
     torch.cuda.synchronize()
     pairs = [("plain", t_p, s_p)]
     if oracle:
@@ -212,6 +273,12 @@ def culled_vs_plain(asset, o, d, t_max: float, label: str, oracle: bool = True,
     res["max_abs_err"] = float((t_k - t_p).abs()[both].max()) if both.any() else 0.0
     res["ms"] = time_ms(lambda: _kernels.raycast_culled_cuda(*args), kernel_reps)
     res["plain_ms"] = time_ms(lambda: raycast_culled_plain(*args), 1)
+    # The work these rays need: the plain version's block visits, each
+    # GROUP rays x TB triangles of Moller-Trumbore.
+    res["block_visits"] = stats["block_visits"]
+    res.update(bound(nbytes(*args[:7]) + 8 * o.shape[0],
+                     stats["block_visits"] * GROUP * asset.tri_data.shape[2]
+                     * FLOPS_PER_TEST["culled"]))
     log(f"[culled] {label}: {res}")
     for name, _, _ in pairs:
         require(res[f"{name}_slot_mismatch"] == 0 and res[f"{name}_t_mismatch"] == 0,
@@ -240,13 +307,150 @@ def phase_culled_kernel_check(device, asset) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The kernel probe (ipcgen_tpu_torch.kernel_probe) and its three kernels
+# ---------------------------------------------------------------------------
+def timed_once(fn):
+    """(result, ms) of one call between CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def probe_tolerance(name: str, against: str):
+    """The limits a probe result must meet ({"same_slot": least share,
+    "max_rel" or "max_abs": largest t error where the slots agree}), or None
+    for bit equality.  Against its plain version: the same products summed
+    in another order.  Against the pair kernel: the same, except the bf16
+    split, whose products err by about 2^-16 of their terms (the JAX
+    probe's own rounding; up to 1e-3 relative in t where t_den is small):
+    it is held to the raycast contract's 5 mm, as a maximum."""
+    from ipcgen_tpu_torch.ops.raycast_probe import FLOOR_MODES
+
+    if against == "plain" and name in FLOOR_MODES:
+        return None
+    if against == "pairs" and name == "bf16":
+        return {"same_slot": 0.999, "max_abs": 0.005}
+    return {"same_slot": 0.9999, "max_rel": 1e-5}
+
+
+def check_agreement(label: str, got: dict, tol) -> None:
+    if tol is None:
+        require(got["bits_equal"], f"{label}: not equal bit for bit: {got}")
+        return
+    ok = all(got[k] >= v if k == "same_slot" else got[k] <= v for k, v in tol.items())
+    require(ok, f"{label}: {got} outside {tol}")
+
+
+def phase_probe(device, asset) -> dict:
+    """The probe's main path (``kernel_probe.run``, every mode of call,
+    grid32 and flat at 2.56 M rays), then each kernel against its plain
+    version on a subset of tiles and the result modes against the pair
+    kernel on all rays."""
+    import torch
+
+    from ipcgen_tpu_torch import kernel_probe
+    from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.ops import raycast_probe as rp
+    from ipcgen_tpu_torch.ops.raycast_pairs import raycast_pairs_components
+
+    names = list(rp.MODES) + ["grid32", "flat"]
+    for k in _kernels.LAUNCHES:
+        _kernels.LAUNCHES[k] = 0
+    t0 = time.time()
+    run = kernel_probe.run(names, device, asset=asset)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    results = run["results"]
+    log(f"[probe] {run['rays']} rays, {run['tiles']} tiles ({run['overflow_tiles']} "
+        f"overflowed), {run['blocks']} blocks; main path {time.time() - t0:.1f} s, "
+        f"launches {launches}")
+    for name in names:
+        r = results[name]
+        log(f"[probe] {name:11s}: {r['ms']:9.3f} ms, {r['pairs']} pairs, hit {r['hit']:.4f}")
+    for k in ("raycast_probe_call", "raycast_probe_grid", "raycast_probe_flat"):
+        require(launches[k] > 0, f"the probe did not launch {k}: {launches}")
+
+    base, flat = run["inputs"], run["flat_inputs"]
+    n_tiles, nb = base["n_tiles"], base["nb"]
+    over = base["ovf"].nonzero().flatten()[:PROBE_SUBSET_OVERFLOWED]
+    tiles = torch.unique(torch.cat([torch.arange(PROBE_SUBSET_TILES, device=device), over]))
+    rows = (tiles[:, None] * 1024 + torch.arange(1024, device=device)).reshape(-1)
+    f_sub = base["f"][rows].contiguous()
+    sub = (f_sub, base["ids"][:, tiles].contiguous(), base["counts"][tiles].contiguous(),
+           base["ovf"][tiles].contiguous())
+    checks = {}
+    for mode in rp.MODES:
+        trif = base["trif_bf16"] if mode == "bf16" else base["trif"]
+        t_k, s_k = results[mode]["out"]
+        plain, plain_ms = timed_once(lambda: rp.probe_call_plain(*sub, trif, mode))
+        got = rp.agreement(t_k[rows], s_k[rows], *plain)
+        check_agreement(f"probe {mode} vs plain", got, probe_tolerance(mode, "plain"))
+        checks[mode] = dict(got, plain_ms=plain_ms)
+    for mode in ("recip", "recip4"):  # the same products: only 1/t_den differs
+        got = rp.agreement(*results[mode]["out"], *results["full"]["out"])
+        check_agreement(f"probe {mode} vs full", got, {"same_slot": 0.9999, "max_rel": 1e-6})
+        checks[mode]["vs_full"] = got
+    ids_flat, counts_c = rp.grid_ids(base["ids"], base["counts"], 32)
+    plain, plain_ms = timed_once(lambda: rp.probe_grid_plain(
+        f_sub, ids_flat.view(n_tiles, 32)[tiles].reshape(-1).contiguous(),
+        counts_c[tiles].contiguous(), base["trif"], 32))
+    got = rp.agreement(*(x[rows] for x in results["grid32"]["out"]), *plain)
+    check_agreement("probe grid32 vs plain", got, probe_tolerance("grid32", "plain"))
+    checks["grid32"] = dict(got, plain_ms=plain_ms)
+    sub_pairs = rp.flat_pairs(flat["ids"][:, tiles], flat["counts"][tiles],
+                              flat["ovf"][tiles], nb)
+    plain, plain_ms = timed_once(lambda: rp.probe_flat_plain(
+        f_sub, *sub_pairs, len(tiles), flat["trif"]))
+    got = rp.agreement(*(x[rows] for x in results["flat"]["out"]), *plain)
+    check_agreement("probe flat vs plain", got, probe_tolerance("flat", "plain"))
+    checks["flat"] = dict(got, plain_ms=plain_ms)
+
+    # The result modes and flat against the pair kernel, on every ray.
+    comps = (asset.tri_data, asset.block_lo, asset.block_hi)
+    t_ref, s_ref = raycast_pairs_components(run["origins"], run["dirs"], *comps,
+                                            t_max=base["t_init"], sort_rays=False)
+    for name in rp.RESULT_MODES + ("flat",):
+        got = rp.agreement(*results[name]["out"], t_ref, s_ref)
+        check_agreement(f"probe {name} vs the pair kernel", got, probe_tolerance(name, "pairs"))
+        checks[name]["vs_pair_kernel"] = got
+    for name, c in checks.items():
+        log(f"[probe] {name}: {json.dumps(c)}")
+
+    # Bounds: the work these rays need (exact lists, nothing overflowed).
+    exact = exact_list_tests(run["origins"], run["dirs"], asset, base["t_init"], 1024, 1)
+    out_bytes = 8 * run["rays"]
+    bounds = {
+        "call": bound(nbytes(base["f"], base["ids"], base["counts"], base["ovf"],
+                             base["trif"]) + out_bytes, exact * FLOPS_PER_TEST["pairs"]),
+        "grid": bound(nbytes(base["f"], ids_flat, counts_c, base["trif"]) + out_bytes,
+                      int(counts_c.sum()) * 1024 * 128 * FLOPS_PER_TEST["pairs"]),
+        "flat": bound(nbytes(flat["f"], flat["pair_tiles"], flat["pair_blocks"],
+                             flat["trif"]) + out_bytes, exact * FLOPS_PER_TEST["pairs"]),
+    }
+    walked_tests = results["full"]["pairs"] * 1024 * 128
+    log(f"[probe] exact-list tests {exact:.4e}, walked by call {walked_tests:.4e}; "
+        f"bounds {json.dumps(bounds)}")
+    return dict(launches=launches, results={n: {k: v for k, v in r.items() if k != "out"}
+                                            for n, r in results.items()},
+                checks=checks, bounds=bounds, exact_list_tests=exact,
+                subset_tiles=int(len(tiles)), subset_overflowed=int(len(over)),
+                rays=run["rays"], tiles=n_tiles)
+
+
+# ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
 def check_labels(ply_path: Path, data_root: Path, n_sample: int = 100_000) -> float:
     from scipy.spatial import cKDTree
 
-    from ipcgen_tpu.io.ply import read_labeled_ply
-    from ipcgen_tpu.semantic.annotations import S3DISAnnotationLoader
+    from ipcgen_tpu_torch.io.ply import read_labeled_ply
+    from ipcgen_tpu_torch.semantic.annotations import S3DISAnnotationLoader
 
     points, _colors, sem, ins = read_labeled_ply(ply_path)
     loader = S3DISAnnotationLoader(str(data_root), verbose=False)
@@ -369,6 +573,15 @@ def check_own_rays(asset, intr, sc, tri_xyz, seed: int, device, n_tiles: int = 1
                max_mm=float(pe.max() * 1e3) if len(pe) else 0.0,
                max_mm_without_grazes=float(pe_rest.max() * 1e3) if len(pe_rest) else 0.0,
                grazes=grazes)
+    # The work the kernel needs for these rays (exact lists) beside what it
+    # runs (its lists, and every block for a walk-all subtile).
+    n_sub = tile // p["sub"]
+    walk_sub = p["walk_all"] != 0
+    counts = (p["offsets"][1:] - p["offsets"][:-1]).long()
+    per_pair = p["sub"] * asset.tri_data.shape[2]
+    res["exact_list_tests"] = exact_list_tests(o, d, asset, max_range, tile, n_sub)
+    res["kernel_tests"] = (int(counts[~walk_sub].sum()) + int(walk_sub.sum())
+                           * asset.num_blocks) * per_pair
     require(res["hit_agree"] >= 0.99, f"hit agreement {res}")
     require(res["same_tri"] >= 0.99, f"same triangle {res}")
     require(res["p99_mm"] <= 5.0, f"point error p99 {res}")
@@ -378,7 +591,7 @@ def check_own_rays(asset, intr, sc, tri_xyz, seed: int, device, n_tiles: int = 1
 
 
 def phase_main_path(device, work: Path, card: str):
-    from ipcgen_tpu.containers.mesh import TriMesh
+    from ipcgen_tpu_torch.containers.mesh import TriMesh
     from ipcgen_tpu_torch.ops import _kernels
     from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
     from ipcgen_tpu_torch.sim.simulator import S3DISSimulator, run_single_scene_simulation
@@ -434,13 +647,54 @@ def phase_main_path(device, work: Path, card: str):
         at_shape = kernel_vs_plain(
             pairs, f"{profile} main-path inputs ({rays} rays)",
             kernel_reps=3, plain_reps=1)
+        at_shape.update(bound(
+            nbytes(*(pairs[k] for k in ("f", "trif", "offsets", "blocks", "walk_all")))
+            + 8 * pairs["f"].shape[0],
+            contract["exact_list_tests"] * FLOPS_PER_TEST["pairs"]))
+        log(f"[main] {profile}: pair kernel {at_shape['ms']:.3f} ms, bound "
+            f"{at_shape['bound_ms']:.3f} ms ({at_shape['bound_by']}), exact-list tests "
+            f"{contract['exact_list_tests']:.4e}, tests run {contract['kernel_tests']:.4e}")
         del pairs
         runs[profile] = dict(launches=launches, wall_s=wall, rays=rays,
                              frames=n_frames, points=n_points, stages=stages,
                              kernel=at_shape)
+    occupancy = check_occupancy(asset, v, t)
     culled = phase_culled_main_path(device, work, card, mesh_path, data_root,
                                     asset, runs["blk2go"])
-    return runs, culled
+    return runs, culled, occupancy
+
+
+def check_occupancy(asset, v, t) -> dict:
+    """The raycast occupancy of the planner's grid (``occupancy_mode:
+    raycast``): obstacle_mask on the card through the pair kernel against
+    the brute oracle's mask."""
+    from ipcgen_tpu_torch.containers.mesh import TriMesh
+    from ipcgen_tpu_torch.containers.scene import RoomBounds
+    from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.ops.occupancy import obstacle_mask
+    from ipcgen_tpu_torch.trajectory import AutoTrajectoryGenerator
+
+    gen = AutoTrajectoryGenerator(robot_radius=0.15)  # the simulator's planner
+    b = RoomBounds.from_mesh(TriMesh(vertices=v, triangles=t)).to_dict()
+    xs = np.arange(b["x_min"], b["x_max"], gen.grid_resolution)
+    ys = np.arange(b["y_min"], b["y_max"], gen.grid_resolution)
+    gx, gy = np.meshgrid(xs, ys, indexing="ij")
+    cells = np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, gen.robot_height)], axis=1)
+    for k in _kernels.LAUNCHES:
+        _kernels.LAUNCHES[k] = 0
+    t0 = time.time()
+    occ = obstacle_mask(asset, cells, gen.robot_radius)
+    seconds = time.time() - t0
+    launches = dict(_kernels.LAUNCHES)
+    want = obstacle_mask(asset, cells, gen.robot_radius, backend="brute")
+    res = dict(cells=len(cells), rays=len(cells) * 26, occupied=int(occ.sum()),
+               agree=float((occ == want).mean()), seconds=seconds,
+               pair_launches=launches["raycast_pairs"])
+    log(f"[occupancy] planning grid of the main room vs the brute oracle: {res}")
+    require(launches["raycast_pairs"] > 0, f"occupancy did not run the pair kernel: {launches}")
+    require(0 < res["occupied"] < len(cells), f"occupancy: {res}")
+    require(res["agree"] >= 0.999, f"occupancy agreement {res}")
+    return res
 
 
 def phase_culled_main_path(device, work: Path, card: str, mesh_path: Path,
@@ -450,7 +704,7 @@ def phase_culled_main_path(device, work: Path, card: str, mesh_path: Path,
     config tree, and its checks."""
     import torch
 
-    from ipcgen_tpu.config import PipelineConfig
+    from ipcgen_tpu_torch.config import PipelineConfig
     from ipcgen_tpu_torch.ops import _kernels
     from ipcgen_tpu_torch.ops.raycast import raycast_asset
     from ipcgen_tpu_torch.ops.raycast_culled import GROUP
@@ -548,6 +802,7 @@ def main() -> int:
 
     import ipcgen_tpu_torch  # noqa: F401  (fails outside a checkout)
     from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.utils.device import card_line
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -562,8 +817,8 @@ def main() -> int:
 
     t0 = time.time()
     _kernels.build()
-    log(f"[build] {len(_kernels.SOURCES)} kernels built (one nvcc each, in "
-        f"parallel) and loaded in {time.time() - t0:.2f} s; seconds per kernel "
+    log(f"[build] {len(_kernels.SOURCES)} sources ({len(_kernels.KERNELS)} kernels) built "
+        f"(one nvcc each, in parallel) and loaded in {time.time() - t0:.2f} s; seconds per source "
         f"{json.dumps({k: round(v, 2) for k, v in _kernels.BUILD_SECONDS.items()})}")
 
     from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
@@ -574,15 +829,18 @@ def main() -> int:
     log(f"[kernel] room: {len(t)} triangles, {asset.num_blocks} blocks")
     checks = phase_kernel_check(device, asset)
     culled_checks = phase_culled_kernel_check(device, asset)
+    probe = phase_probe(device, asset)
     del asset
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        runs, culled = phase_main_path(device, work, card)
+        runs, culled, occupancy = phase_main_path(device, work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     launches = sum(r["launches"]["raycast_pairs"] for r in runs.values())
     at_shape = runs["blk2go"]["kernel"]  # the default profile
+    yardstick = {"library_ms": None}  # no PyTorch call computes a nearest hit
+    bound_keys = ("bound_ms", "bound_by")
     record = {"kernels": [{
         "name": "raycast_pairs_kernel",
         "route": "cuda",
@@ -594,10 +852,12 @@ def main() -> int:
                            *(c["max_abs_err"] for c in checks.values())),
         "ms": at_shape["ms"],
         "plain_ms": at_shape["plain_ms"],
+        **{k: at_shape[k] for k in bound_keys}, **yardstick,
         "main_path_inputs": {
             k: {"rays": r["kernel"]["rays"], "ms": r["kernel"]["ms"],
-                "plain_ms": r["kernel"]["plain_ms"]}
+                "plain_ms": r["kernel"]["plain_ms"], "bound_ms": r["kernel"]["bound_ms"]}
             for k, r in runs.items()},
+        "occupancy": occupancy,
     }, {
         "name": "raycast_culled_kernel",
         "route": "cuda",
@@ -608,6 +868,7 @@ def main() -> int:
                            *(c["max_abs_err"] for c in culled_checks.values())),
         "ms": culled["kernel"]["ms"],
         "plain_ms": culled["kernel"]["plain_ms"],
+        **{k: culled["kernel"][k] for k in bound_keys}, **yardstick,
         "main_path_inputs": {
             "blk2go_culled": {"rays": culled["kernel"]["rays"],
                               "ms": culled["kernel"]["ms"],
@@ -615,9 +876,39 @@ def main() -> int:
                               "full_scan_rays": culled["full_scan_rays"],
                               "full_scan_ms": culled["full_scan_ms"]}},
         "kernel_check_inputs": {
-            k: {"rays": c["rays"], "ms": c["ms"], "plain_ms": c["plain_ms"]}
+            k: {"rays": c["rays"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"]}
             for k, c in culled_checks.items()},
     }]}
+    from ipcgen_tpu_torch.ops.raycast_probe import MODES, RESULT_MODES
+
+    res, chk = probe["results"], probe["checks"]
+    for name, source_line, launch_key, result_names in (
+            ("probe_call_kernel", "scripts/kernel_probe.py:119", "raycast_probe_call", MODES),
+            ("probe_grid_kernel", "scripts/kernel_probe.py:342", "raycast_probe_grid",
+             ("grid32",)),
+            ("probe_flat_kernel", "scripts/kernel_probe.py:486", "raycast_probe_flat",
+             ("flat",))):
+        head = result_names[0]  # call: its "full" mode
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "ipcgen_tpu_torch/csrc/raycast_probe.cu",
+            "replaces": source_line,
+            "launches": probe["launches"][launch_key],
+            "max_abs_err": max(chk[n]["max_abs"] for n in result_names
+                               if n in RESULT_MODES + ("grid32", "flat", "nodma")),
+            "ms": res[head]["ms"],
+            "plain_ms": chk[head]["plain_ms"],
+            **{k: probe["bounds"][launch_key.rsplit("_", 1)[1]][k] for k in bound_keys},
+            **yardstick,
+            "rays": probe["rays"],
+            "plain_subset_tiles": probe["subset_tiles"],
+            "modes": {n: {"ms": res[n]["ms"], "plain_ms": chk[n]["plain_ms"],
+                          "pairs": res[n]["pairs"]} for n in result_names},
+        }
+        if name == "probe_call_kernel":
+            entry["also_replaces"] = "scripts/kernel_probe.py:32"
+        record["kernels"].append(entry)
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -4,18 +4,23 @@ CUDA kernels for one NVIDIA H100 (``sm_90a``).
 The JAX package ``ipcgen_tpu`` beside it is the reference; this package keeps
 its layout so each module's counterpart is easy to find:
 
-- ``utils``      device helpers (``sync``, ``to_host``), the synthetic test
-                 room, the viridis table;
+- ``utils``      device helpers (``sync``, ``to_host``), the native host
+                 runtime's bindings, JSON helpers, the synthetic test rooms,
+                 the viridis table;
 - ``models``     LiDAR intrinsics profiles and beam patterns;
-- ``ops``        scene asset, geometry, raycast (the brute oracle and the
-                 candidate-pair path whose inner loop is the CUDA kernel in
-                 ``csrc/raycast_pairs.cu``), exact and grid 1-NN;
+- ``ops``        scene asset, geometry, raycast (the brute oracle, the
+                 candidate-pair path and the culled path, whose inner loops
+                 are the CUDA kernels in ``csrc/``), occupancy, exact and
+                 grid 1-NN;
 - ``sim``        the fused multi-waypoint scan, engines and the simulator;
-- ``containers`` the simulated-scene container with the port's label path.
+- ``containers``, ``io``, ``semantic``, ``trajectory``, ``config``
+                 the host layer: copies of the JAX package's modules of the
+                 same names, with the simulated-scene container's label path
+                 on the port's 1-NN;
+- ``kernel_probe`` the pair kernel's probe variants (``csrc/raycast_probe.cu``).
 
-Host-only modules of ``ipcgen_tpu`` whose imports never reach jax,
-matplotlib or yaml (containers, io, trajectory, semantic, native helpers) are
-reused by import.  This package never imports jax.
+This package imports nothing of ``ipcgen_tpu`` and never imports jax; yaml
+and matplotlib are imported only inside the functions that need them.
 
 Numerics: the JAX package runs its float32 products at HIGHEST precision
 (``models/beams.py`` dirs_to_world, ``ops/knn.py`` q @ r.T).  The port depends

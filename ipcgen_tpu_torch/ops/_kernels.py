@@ -6,14 +6,15 @@ use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 ``build/ipcgen_tpu_torch/`` at the repository root (the file name carries a
 hash of the source and the command, so an edited kernel is rebuilt).  The
 sources that are missing are compiled together, one ``nvcc`` process each.
-Each library is bound with ``ctypes`` through a plain C interface: pointers
-and the current stream go in as ``c_void_p``, and each launch function
-returns ``cudaGetLastError()``.
+Each library is bound with ``ctypes`` through a plain C interface: one
+``<kernel>_launch`` function per kernel (``KERNELS``) and one
+``<source>_error_string``; pointers and the current stream go in as
+``c_void_p``, and each launch function returns ``cudaGetLastError()``.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, launches on the current stream without
-synchronising, raises if the launch was refused, and adds one to its entry
-of ``LAUNCHES``.  Nothing here falls back to another path.
+outputs and scratch with ``torch.empty``, launches on the current stream
+without synchronising, raises if the launch was refused, and adds one to its
+kernel's entry of ``LAUNCHES``.  Nothing here falls back to another path.
 """
 
 from __future__ import annotations
@@ -34,26 +35,35 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-# Kernel name -> its own nvcc flags.  The culled raycast must round every
+# Source name -> its own nvcc flags.  The culled raycast must round every
 # product and sum on its own (bit-exact against the oracle): no FMA
 # contraction.
 SOURCES = {
     "raycast_pairs": [],
     "raycast_culled": ["-fmad=false"],
+    "raycast_probe": [],
+}
+
+_C_PTR, _C_INT, _C_FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Kernel name -> (its source, the argtypes of ``<kernel>_launch``).
+KERNELS = {
+    "raycast_pairs": ("raycast_pairs", [_C_PTR] * 7 + [_C_INT] * 4 + [_C_FLOAT, _C_PTR]),
+    "raycast_culled": ("raycast_culled",
+                       [_C_PTR] * 9 + [_C_INT] * 5 + [_C_FLOAT, _C_PTR]),
+    "raycast_probe_call": ("raycast_probe",
+                           [_C_PTR] * 7 + [_C_INT] * 4 + [_C_FLOAT, _C_PTR]),
+    "raycast_probe_grid": ("raycast_probe",
+                           [_C_PTR] * 7 + [_C_INT] * 2 + [_C_FLOAT, _C_PTR]),
+    "raycast_probe_flat": ("raycast_probe",
+                           [_C_PTR] * 7 + [_C_INT] * 2 + [_C_FLOAT, _C_PTR]),
 }
 
 # Launch count per kernel; a run resets these to 0 and reads them after.
-LAUNCHES = {name: 0 for name in SOURCES}
-# Seconds the last build of each kernel took (0.0 when it was already built).
+LAUNCHES = {name: 0 for name in KERNELS}
+# Seconds the last build of each source took (0.0 when it was already built).
 BUILD_SECONDS = {}
 
 _LIBS = {}
-
-_C_PTR, _C_INT, _C_FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {
-    "raycast_pairs": [_C_PTR] * 7 + [_C_INT] * 4 + [_C_FLOAT, _C_PTR],
-    "raycast_culled": [_C_PTR] * 9 + [_C_INT] * 5 + [_C_FLOAT, _C_PTR],
-}
 
 
 def _nvcc() -> str:
@@ -107,9 +117,11 @@ def build() -> dict:
         if name in _LIBS:
             continue
         lib = ctypes.CDLL(str(_library_path(name)))
-        launch = getattr(lib, f"{name}_launch")
-        launch.restype = ctypes.c_int
-        launch.argtypes = _ARGTYPES[name]
+        for kernel, (source, argtypes) in KERNELS.items():
+            if source == name:
+                launch = getattr(lib, f"{kernel}_launch")
+                launch.restype = ctypes.c_int
+                launch.argtypes = argtypes
         error_string = getattr(lib, f"{name}_error_string")
         error_string.restype = ctypes.c_char_p
         error_string.argtypes = [ctypes.c_int]
@@ -132,15 +144,16 @@ def _check(x: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    """Call ``<name>_launch`` on the current stream of ``device``; raise if
-    the launch was refused, else count it."""
-    lib = build()[name]
+    """Call kernel ``name``'s ``<name>_launch`` on the current stream of
+    ``device``; raise if the launch was refused, else count it."""
+    source = KERNELS[name][0]
+    lib = build()[source]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, f"{name}_launch")(*args, stream)
     if rc != 0:
-        msg = getattr(lib, f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name}_kernel launch failed: {msg} ({rc})")
+        msg = getattr(lib, f"{source}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
     LAUNCHES[name] += 1
 
 
@@ -221,4 +234,100 @@ def raycast_culled_cuda(origins, dirs, tri_data, block_lo, block_hi,
             block_lo.data_ptr(), block_hi.data_ptr(), super_lo.data_ptr(),
             super_hi.data_ptr(), t.data_ptr(), slot.data_ptr(), n, nb, ns,
             int(super_factor), tb, float(t_init))
+    return t, slot
+
+
+def _probe_common(f, trif, n_tiles: int, device: torch.device, bf16: bool = False):
+    """Checks shared by the three probe kernels (csrc/raycast_probe.cu)."""
+    _check(f, "f", torch.float32, 2, device)
+    _check(trif, "trif", torch.bfloat16 if bf16 else torch.float32, 3, device)
+    rows = 20 if bf16 else 10
+    if trif.shape[1:] != (rows, 640):
+        raise ValueError(f"trif: shape {tuple(trif.shape)}, expected (NB, {rows}, 640)")
+    if trif.data_ptr() % 16:
+        raise ValueError("trif: must be 16-byte aligned (cp.async copies)")
+    if n_tiles <= 0 or f.shape != (n_tiles * 1024, 10):
+        raise ValueError(f"f: shape {tuple(f.shape)}, expected (T * 1024, 10), T > 0")
+
+
+def raycast_probe_call_cuda(f, ids, counts, ovf, trif, mode: str, t_init: float):
+    """Launch ``probe_call_kernel`` in ``mode`` (csrc/raycast_probe.cu).
+
+    f (T*1024, 10) float32; ids (V, T), counts (T,), ovf (T,) int32; trif
+    (NB, 10, 640) float32, or (NB, 20, 640) bfloat16 hi/lo panels for mode
+    "bf16"; all on one CUDA device.  Returns (t (T*1024,) float32,
+    slot (T*1024,) int32).
+    """
+    from ipcgen_tpu_torch.ops.raycast_probe import MODES
+
+    device = f.device
+    if device.type != "cuda":
+        raise ValueError(f"raycast_probe_call_cuda: f is on {device}, not CUDA")
+    if mode not in MODES:
+        raise ValueError(f"unknown probe mode {mode!r}; expected one of {MODES}")
+    n_tiles = counts.shape[0]
+    _probe_common(f, trif, n_tiles, device, bf16=mode == "bf16")
+    for x, name in ((ids, "ids"), (counts, "counts"), (ovf, "ovf")):
+        _check(x, name, torch.int32, 2 if name == "ids" else 1, device)
+    if ids.shape[1] != n_tiles or ovf.shape != (n_tiles,) or ids.shape[0] == 0:
+        raise ValueError(f"ids {tuple(ids.shape)}, ovf {tuple(ovf.shape)}: expected "
+                         f"(V, {n_tiles}) and ({n_tiles},)")
+    t = torch.empty(n_tiles * 1024, dtype=torch.float32, device=device)
+    slot = torch.empty(n_tiles * 1024, dtype=torch.int32, device=device)
+    _launch("raycast_probe_call", device, f.data_ptr(), ids.data_ptr(),
+            counts.data_ptr(), ovf.data_ptr(), trif.data_ptr(), t.data_ptr(),
+            slot.data_ptr(), n_tiles, ids.shape[0], trif.shape[0],
+            MODES.index(mode), float(t_init))
+    return t, slot
+
+
+def raycast_probe_grid_cuda(f, ids_flat, counts, trif, cap: int, t_init: float):
+    """Launch ``probe_grid_kernel`` (csrc/raycast_probe.cu): one CUDA block
+    per (tile, candidate) step, merged with 64-bit atomicMin.
+
+    f (T*1024, 10) float32; ids_flat (T*cap,) and counts (T,) int32 with
+    counts <= cap; trif (NB, 10, 640) float32.  Returns (t, slot).
+    """
+    device = f.device
+    if device.type != "cuda":
+        raise ValueError(f"raycast_probe_grid_cuda: f is on {device}, not CUDA")
+    n_tiles = counts.shape[0]
+    _probe_common(f, trif, n_tiles, device)
+    _check(ids_flat, "ids_flat", torch.int32, 1, device)
+    _check(counts, "counts", torch.int32, 1, device)
+    if cap <= 0 or ids_flat.shape != (n_tiles * cap,):
+        raise ValueError(f"ids_flat: shape {tuple(ids_flat.shape)}, expected "
+                         f"({n_tiles * cap},) for cap {cap}")
+    best = torch.empty(n_tiles * 1024, dtype=torch.int64, device=device)
+    t = torch.empty(n_tiles * 1024, dtype=torch.float32, device=device)
+    slot = torch.empty(n_tiles * 1024, dtype=torch.int32, device=device)
+    _launch("raycast_probe_grid", device, f.data_ptr(), ids_flat.data_ptr(),
+            counts.data_ptr(), trif.data_ptr(), best.data_ptr(), t.data_ptr(),
+            slot.data_ptr(), n_tiles, int(cap), float(t_init))
+    return t, slot
+
+
+def raycast_probe_flat_cuda(f, pair_tiles, pair_blocks, n_tiles: int, trif,
+                            t_init: float):
+    """Launch ``probe_flat_kernel`` (csrc/raycast_probe.cu): one CUDA block
+    per chunk of the flat (tile, block) pair list, merged with 64-bit
+    atomicMin.
+
+    f (T*1024, 10) float32; pair_tiles (P,) ascending and pair_blocks (P,)
+    int32; trif (NB, 10, 640) float32.  Returns (t, slot).
+    """
+    device = f.device
+    if device.type != "cuda":
+        raise ValueError(f"raycast_probe_flat_cuda: f is on {device}, not CUDA")
+    _probe_common(f, trif, n_tiles, device)
+    _check(pair_tiles, "pair_tiles", torch.int32, 1, device)
+    _check(pair_blocks, "pair_blocks", torch.int32, 1, device)
+    if pair_blocks.shape != pair_tiles.shape:
+        raise ValueError("pair_tiles and pair_blocks must have one entry per pair")
+    best = torch.empty(n_tiles * 1024, dtype=torch.int64, device=device)
+    t = torch.empty(n_tiles * 1024, dtype=torch.float32, device=device)
+    slot = torch.empty(n_tiles * 1024, dtype=torch.int32, device=device)
+    _launch("raycast_probe_flat", device, f.data_ptr(), pair_tiles.data_ptr(),
+            pair_blocks.data_ptr(), trif.data_ptr(), best.data_ptr(), t.data_ptr(),
+            slot.data_ptr(), int(n_tiles), pair_tiles.shape[0], float(t_init))
     return t, slot

@@ -42,7 +42,8 @@ def t_init_for(t_max: float) -> float:
 
 
 def raycast_culled_plain(origins, dirs, tri_data, block_lo, block_hi,
-                         super_lo, super_hi, super_factor: int, t_init: float):
+                         super_lo, super_hi, super_factor: int, t_init: float,
+                         stats: dict = None):
     """The kernel's function in torch ops; returns (t (R,) +inf on miss,
     packed slot (R,) int32, -1 on miss).
 
@@ -50,7 +51,9 @@ def raycast_culled_plain(origins, dirs, tri_data, block_lo, block_hi,
     that still visits it does so with its own running best, which is what
     each group would do on its own.  Padded rays (to a multiple of
     ``GROUP``) start far outside the scene and point up, as in the JAX
-    package.
+    package.  ``stats``, when given, receives ``block_visits``: the number
+    of (group, leaf block) visits, each ``GROUP`` rays x TB triangles of
+    Moller-Trumbore.
     """
     dev = origins.device
     n = origins.shape[0]
@@ -77,6 +80,7 @@ def raycast_culled_plain(origins, dirs, tri_data, block_lo, block_hi,
         return ray_aabb_hit(*ray[:6], lo, hi, ray[6]).view(-1, GROUP).any(dim=1)
 
     all_groups = torch.arange(n_groups, device=dev)
+    visits = 0
     for s in range(ns):
         visit = visiting(None, super_lo[s], super_hi[s])
         if not bool(visit.any()):
@@ -85,8 +89,10 @@ def raycast_culled_plain(origins, dirs, tri_data, block_lo, block_hi,
         for b in range(s * super_factor, min((s + 1) * super_factor, nb)):
             rows = (groups[:, None] * GROUP + lane).reshape(-1)
             visit_b = visiting(rows, block_lo[b], block_hi[b])
-            if not bool(visit_b.any()):
+            n_visit = int(visit_b.sum())
+            if not n_visit:
                 continue
+            visits += n_visit
             rows = (groups[visit_b][:, None] * GROUP + lane).reshape(-1)
             blk = tri_data[b]
             t = moller_trumbore_components(
@@ -99,6 +105,8 @@ def raycast_culled_plain(origins, dirs, tri_data, block_lo, block_hi,
             take = tmin < bt
             best_t[rows] = torch.where(take, tmin, bt)
             best_i[rows] = torch.where(take, targ.int() + b * tb, best_i[rows])
+    if stats is not None:
+        stats["block_visits"] = visits
     t_out = torch.where(best_i >= 0, best_t, torch.full_like(best_t, float("inf")))
     return t_out[:n], best_i[:n]
 

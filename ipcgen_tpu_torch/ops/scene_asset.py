@@ -109,7 +109,7 @@ def build_scene_arrays(
     corners = vertices[triangles]  # (T, 3, 3)
     centroids = corners.mean(axis=1)
 
-    from ipcgen_tpu.utils import native
+    from ipcgen_tpu_torch.utils import native
 
     order = native.morton_order(centroids, bits=morton_bits)
     lo = centroids.min(axis=0)

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 from pathlib import Path
 
@@ -121,22 +120,21 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_scan needs a CUDA device")
 
-    from ipcgen_tpu.containers.mesh import TriMesh
-    from ipcgen_tpu.containers.scene import RoomBounds
-    from ipcgen_tpu.trajectory import AutoTrajectoryGenerator
-    from ipcgen_tpu.trajectory.waypoint import waypoints_to_pose_batch
+    from ipcgen_tpu_torch.containers.mesh import TriMesh
+    from ipcgen_tpu_torch.containers.scene import RoomBounds
     from ipcgen_tpu_torch.models.lidar_intrinsics import (
         DualAxisLidarIntrinsics,
         Indoor8LineLidarIntrinsics,
     )
     from ipcgen_tpu_torch.ops import _kernels
     from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
+    from ipcgen_tpu_torch.trajectory import AutoTrajectoryGenerator
+    from ipcgen_tpu_torch.trajectory.waypoint import waypoints_to_pose_batch
+    from ipcgen_tpu_torch.utils.device import card_line
     from ipcgen_tpu_torch.utils.synthetic import synthetic_room
 
     device = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     _kernels.build()
     v, t = synthetic_room(700_000)
     mesh = TriMesh(vertices=v, triangles=t)

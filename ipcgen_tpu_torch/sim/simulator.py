@@ -13,10 +13,13 @@ candidate-pair kernel, "pallas" and "xla" the culled Moller-Trumbore kernel
 scan oracle.  "auto" does not copy the JAX package's "xla off the TPU" rule:
 the tensors' device picks the kernel or its plain version.
 
-Not ported yet (see ROADMAP.md): visualisations, raycast occupancy for the
-trajectory planner, multi-device room parallelism, the shard-level raycast
-paths, and the batch entry points ``main``/``main_single`` with
-``find_available_scenes``.
+The trajectory planner's ``occupancy_mode`` comes from the config's
+``trajectory`` section: "vertices" (the default) or "raycast", which probes
+the planning grid through the resident scene asset (``ops/occupancy.py``).
+
+Not ported yet (see ROADMAP.md): visualisations, multi-device room
+parallelism, the shard-level raycast paths, and the batch entry points
+``main``/``main_single`` with ``find_available_scenes``.
 """
 
 from __future__ import annotations
@@ -29,17 +32,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ipcgen_tpu.containers.mesh import TriMesh
-from ipcgen_tpu.containers.scene import RoomBounds, S3DISScene
-from ipcgen_tpu.containers.sim_frame import S3DISSimFrame, ScanQuality
-from ipcgen_tpu.trajectory import (
-    AutoTrajectoryGenerator,
-    CollisionDetector,
-    PathType,
-    SmartTrajectoryGenerator,
-    Waypoint,
-)
-from ipcgen_tpu.trajectory.waypoint import waypoints_to_pose_batch
+from ipcgen_tpu_torch.config import PipelineConfig
+from ipcgen_tpu_torch.containers.mesh import TriMesh
+from ipcgen_tpu_torch.containers.scene import RoomBounds, S3DISScene
+from ipcgen_tpu_torch.containers.sim_frame import S3DISSimFrame, ScanQuality
 from ipcgen_tpu_torch.containers.sim_scene import LabelPrefetch, S3DISSimScene
 from ipcgen_tpu_torch.models.lidar_intrinsics import (
     DualAxisLidarIntrinsics,
@@ -47,6 +43,14 @@ from ipcgen_tpu_torch.models.lidar_intrinsics import (
 )
 from ipcgen_tpu_torch.ops.scene_asset import SceneAsset, build_scene_asset
 from ipcgen_tpu_torch.sim.scan import scan_waypoints
+from ipcgen_tpu_torch.trajectory import (
+    AutoTrajectoryGenerator,
+    CollisionDetector,
+    PathType,
+    SmartTrajectoryGenerator,
+    Waypoint,
+)
+from ipcgen_tpu_torch.trajectory.waypoint import waypoints_to_pose_batch
 from ipcgen_tpu_torch.utils.device import as_device, sync
 
 # The JAX package's raycast backend names -> the port's backends.
@@ -127,15 +131,14 @@ class S3DISSimulator:
             if root and area and room else None
         )
         traj = self.config.get("trajectory", {}) or {}
-        occupancy_mode = traj.get("occupancy_mode", "vertices")
-        if occupancy_mode != "vertices":
-            raise NotImplementedError(
-                f"occupancy_mode={occupancy_mode!r}: only 'vertices' is ported")
         self.trajectory_generator = SmartTrajectoryGenerator(
             room_bounds.to_dict(), robot_height=traj.get("robot_height", 1.0))
+        # "raycast" classifies the planning grid with probe rays against the
+        # resident asset (ops/occupancy.py); "vertices" is the default.
         self.auto_trajectory_generator = AutoTrajectoryGenerator(
             robot_radius=0.15, seed=self.config.get("seed"),
-            occupancy_mode="vertices",
+            occupancy_mode=traj.get("occupancy_mode", "vertices"),
+            scene_asset=self.scene_asset,
         )
         return self.scene
 
@@ -311,8 +314,6 @@ def create_simulator_from_config(config_path: Optional[str] = None,
     """
     config = load_default_config() if config_path is None else load_config(config_path)
     if "simulation" in config and "raycast_engine" not in config:
-        from ipcgen_tpu.config import PipelineConfig
-
         tree = PipelineConfig.from_dict(config)
         return S3DISSimulator(
             tree.simulator_config(),

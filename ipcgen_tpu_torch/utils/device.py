@@ -7,6 +7,8 @@ uint8 detour for bool downloads and its scalar-fetch barrier are not needed.
 
 from __future__ import annotations
 
+import subprocess
+
 import numpy as np
 import torch
 
@@ -41,3 +43,12 @@ def to_host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi`` gives them
+    (a card may be set below its maximum power and then runs slower)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]

@@ -11,6 +11,10 @@ room txt (``x y z r g b``) plus ``Annotations/{class}_{k}.txt``.
 ``cluttered_room``, ``hardware_rays`` and ``hardware_scene`` are the scene
 and rays of ``tests/test_tpu_hardware.py:31-50``, shared by ``chip_smoke.py``
 and the port's tests.
+
+``patch_ordered_scan_rays`` is the ray set of
+``scripts/bench_kernel_iter.py:21-36``, which the kernel probe
+(``ipcgen_tpu_torch/kernel_probe.py``) casts.
 """
 
 from __future__ import annotations
@@ -62,7 +66,7 @@ def subdivide(verts, tris, levels=1):
 def synthetic_room(target_tris: int, seed: int = 0):
     """(vertices float32, triangles int32) with the largest 4^k multiple of
     156 triangles not above ``target_tris``."""
-    from ipcgen_tpu.containers.mesh import TriMesh
+    from ipcgen_tpu_torch.containers.mesh import TriMesh
 
     room = TriMesh.box(center=ROOM_CENTER, size=ROOM_SIZE, inward=True)
     verts, tris = [room.vertices], [room.triangles]
@@ -149,7 +153,7 @@ def cluttered_room(rng: np.random.Generator, n_boxes: int = 5):
     """An inward 4 x 3 x 2.5 m room with ``n_boxes`` random boxes drawn from
     ``rng`` (the scene of tests/test_raycast_mxu.py:22-34); (vertices
     float32, triangles int32)."""
-    from ipcgen_tpu.containers.mesh import TriMesh
+    from ipcgen_tpu_torch.containers.mesh import TriMesh
 
     room = TriMesh.box(center=(2, 1.5, 1.25), size=(4, 3, 2.5), inward=True)
     vs, ts = [room.vertices], [room.triangles]
@@ -181,3 +185,23 @@ def hardware_scene(n: int):
     rng = np.random.default_rng(0)
     verts, tris = cluttered_room(rng, n_boxes=6)
     return verts, tris, *hardware_rays(rng, n)
+
+
+def patch_ordered_scan_rays(num_waypoints: int = 20, r: int = 128_000,
+                            lines: int = 32):
+    """A dense ``lines``-line scan of ``r`` rays (15 to -20 degrees) in patch
+    order, cast from ``num_waypoints`` origins on the line y = 2.5, z = 1
+    between x = 1 and x = 5: (origins, dirs) float32, waypoint-major."""
+    from ipcgen_tpu_torch.sim.scan import patch_permutation
+
+    phis = np.tile(np.linspace(0, 2 * np.pi, r // lines, endpoint=False), lines)
+    thetas = np.repeat(np.deg2rad(np.linspace(15, -20, lines)), r // lines)
+    dirs = np.stack(
+        [np.cos(thetas) * np.cos(phis), np.cos(thetas) * np.sin(phis),
+         np.sin(thetas)], axis=1).astype(np.float32)
+    dirs = dirs[patch_permutation(lines, r // lines)]
+    xs = np.linspace(1.0, 5.0, num_waypoints)
+    origins = np.repeat(
+        np.stack([xs, np.full(num_waypoints, 2.5), np.full(num_waypoints, 1.0)],
+                 axis=1), r, axis=0).astype(np.float32)
+    return origins, np.tile(dirs, (num_waypoints, 1))

@@ -13,7 +13,13 @@ conftest imports jax).  Without a card its ``cuda`` tests skip.  Tolerances:
   same triangle >= 99 %, hit-point error p99 <= 5 mm and max <= 5 cm);
 - culled kernel vs its plain version and vs the oracle: bit for bit (the
   hardware contract of tests/test_tpu_hardware.py:57-70): every product and
-  sum is rounded on its own in all three.
+  sum is rounded on its own in all three;
+- probe kernels vs their plain versions (``ops/raycast_probe.py``): the
+  result modes, grid and flat the same slot on >= 99.99 % of rays and t
+  within 1e-5 relative (the same products summed in another order); the
+  floor modes bit for bit (their plain versions repeat the kernel's FMA
+  order); recip within 1e-6 of the full kernel's t (the same products, only
+  the reciprocal differs).
 """
 
 import numpy as np
@@ -23,9 +29,15 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)  # six pytest-xdist workers share the CPU cores
 
 from ipcgen_tpu_torch.ops import raycast_pairs as pairs  # noqa: E402
+from ipcgen_tpu_torch.ops import raycast_probe as rp  # noqa: E402
 from ipcgen_tpu_torch.ops.raycast import raycast_asset  # noqa: E402
 from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset  # noqa: E402
-from ipcgen_tpu_torch.utils.synthetic import cluttered_room, hardware_scene  # noqa: E402
+from ipcgen_tpu_torch.utils.synthetic import (  # noqa: E402
+    cluttered_room,
+    hardware_scene,
+    patch_ordered_scan_rays,
+    synthetic_room,
+)
 
 
 @pytest.fixture
@@ -253,3 +265,77 @@ def test_culled_wrapper_rejects_bad_inputs(cuda_device):
         _kernels.raycast_culled_cuda(*good[:2], tri[:, :9].contiguous(), *good[3:])
     with pytest.raises(ValueError):  # one super of one block cannot hold two
         _kernels.raycast_culled_cuda(*good[:7], 1, 1e30)
+
+
+def probe_case(device, overflow: bool):
+    """The probe's inputs on a 9,984-triangle room and 64 tiles of its rays;
+    with ``overflow`` every seventh tile walks every block."""
+    verts, tris = synthetic_room(10_000)
+    asset = build_scene_asset(verts, tris, device=device)
+    origins, dirs = patch_ordered_scan_rays(2, r=32_768)
+    p = rp.prepare_probe(t_(origins).to(device), t_(dirs).to(device), asset.tri_data,
+                         asset.block_lo, asset.block_hi)
+    if overflow:
+        p["ovf"][::7] = 1
+    return p
+
+
+def check_probe(name, kernel, plain):
+    got = rp.agreement(*kernel, *plain)
+    if name in rp.FLOOR_MODES:
+        assert got["bits_equal"], (name, got)
+    else:
+        assert got["same_slot"] >= 0.9999 and got["max_rel"] <= 1e-5, (name, got)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overflow", [False, True])
+def test_probe_kernels_match_plain_on_card(cuda_device, overflow):
+    from ipcgen_tpu_torch.ops import _kernels
+
+    p = probe_case(cuda_device, overflow)
+    call = (p["f"], p["ids"], p["counts"], p["ovf"])
+    outs = {}
+    for mode in rp.MODES:
+        trif = p["trif_bf16"] if mode == "bf16" else p["trif"]
+        before = _kernels.LAUNCHES["raycast_probe_call"]
+        outs[mode] = _kernels.raycast_probe_call_cuda(*call, trif, mode, rp.T_INIT)
+        assert _kernels.LAUNCHES["raycast_probe_call"] == before + 1
+        check_probe(mode, outs[mode], rp.probe_call_plain(*call, trif, mode))
+    for mode in ("recip", "recip4"):
+        got = rp.agreement(*outs[mode], *outs["full"])
+        assert got["same_slot"] >= 0.9999 and got["max_rel"] <= 1e-6, (mode, got)
+    assert (outs["full"][1] >= 0).float().mean().item() > 0.9
+    ids_flat, counts = rp.grid_ids(p["ids"], p["counts"], 8)
+    check_probe("grid8", _kernels.raycast_probe_grid_cuda(p["f"], ids_flat, counts,
+                                                          p["trif"], 8, rp.T_INIT),
+                rp.probe_grid_plain(p["f"], ids_flat, counts, p["trif"], 8))
+    pt, pb = rp.flat_pairs(p["ids"], p["counts"], p["ovf"], p["nb"])
+    flat = _kernels.raycast_probe_flat_cuda(p["f"], pt, pb, p["n_tiles"], p["trif"],
+                                            rp.T_INIT)
+    check_probe("flat", flat, rp.probe_flat_plain(p["f"], pt, pb, p["n_tiles"], p["trif"]))
+    got = rp.agreement(*flat, *outs["full"])  # the same walk, other guards
+    assert got["same_slot"] >= 0.9999 and got["max_rel"] <= 1e-5, got
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_reject_bad_inputs(cuda_device):
+    from ipcgen_tpu_torch.ops import _kernels
+
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    f = torch.zeros((1024, 10), device=cuda_device)
+    trif = torch.zeros((1, 10, 640), device=cuda_device)
+    ids, counts, ovf = torch.zeros((1, 1), **i32), torch.ones(1, **i32), torch.zeros(1, **i32)
+    t, s = _kernels.raycast_probe_call_cuda(f, ids, counts, ovf, trif, "full", 25.0)
+    assert torch.all(s == -1) and torch.all(t == 25.0)  # nothing to hit
+    with pytest.raises(ValueError):
+        _kernels.raycast_probe_call_cuda(f, ids, counts, ovf, trif, "fast", 25.0)
+    with pytest.raises(TypeError):  # bf16 mode needs the bf16 panels
+        _kernels.raycast_probe_call_cuda(f, ids, counts, ovf, trif, "bf16", 25.0)
+    with pytest.raises(ValueError):
+        _kernels.raycast_probe_call_cuda(f[:1000], ids, counts, ovf, trif, "full", 25.0)
+    with pytest.raises(ValueError):
+        _kernels.raycast_probe_grid_cuda(f, ids.view(-1), counts, trif, 2, 25.0)
+    with pytest.raises(ValueError):
+        _kernels.raycast_probe_flat_cuda(f, ids.view(-1), ids.view(-1)[:0], 1, trif, 25.0)

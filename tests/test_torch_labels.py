@@ -87,7 +87,7 @@ def test_room_label_data_matches_jax():
     from ipcgen_tpu.containers.sim_scene import load_room_label_data as jax_load
 
     want = jax_load(str(GOLDEN), "Area_1", "office_1")
-    got = load_room_label_data(str(GOLDEN), "Area_1", "office_1")
+    got = load_room_label_data(str(GOLDEN), "Area_1", "office_1", device="cpu")
     for w, g in zip(want, got):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 

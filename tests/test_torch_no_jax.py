@@ -1,9 +1,11 @@
-"""The port runs where jax, matplotlib and yaml are missing (as on the GPU
-host): a subprocess blocks all three, imports ``ipcgen_tpu_torch`` and runs
-the sim stage on the CPU through the port's public entry point, then again
-through the config tree (``PipelineConfig.from_dict`` with
-``simulation.backend: pallas``, the culled path), as ``chip_smoke.py`` does
-on the card."""
+"""The port stands alone: it runs where jax, matplotlib and yaml are missing
+(as on the GPU host) and without the JAX package.  A subprocess blocks all
+four, imports ``ipcgen_tpu_torch`` and runs the sim stage on the CPU through
+the port's public entry point, then again through the config tree
+(``PipelineConfig.from_dict`` with ``simulation.backend: pallas``, the culled
+path), as ``chip_smoke.py`` does on the card.  A source scan keeps every
+``import`` of jax or of ``ipcgen_tpu`` out of the package and
+``chip_smoke.py``."""
 
 import os
 import re
@@ -21,14 +23,15 @@ GOLDEN = REPO / "tests" / "fixtures" / "golden_room"
 
 SCRIPT = textwrap.dedent("""
     import sys
-    for name in ("jax", "matplotlib", "yaml"):
+    BLOCKED = ("jax", "matplotlib", "yaml", "ipcgen_tpu")
+    for name in BLOCKED:
         sys.modules[name] = None  # any import of them raises ImportError
     from pathlib import Path
 
     import numpy as np
 
-    from ipcgen_tpu.containers import TriMesh
-    from ipcgen_tpu.io.ply import read_labeled_ply
+    from ipcgen_tpu_torch.containers import TriMesh
+    from ipcgen_tpu_torch.io.ply import read_labeled_ply
     from ipcgen_tpu_torch.sim.simulator import run_single_scene_simulation
 
     out = Path(sys.argv[1])
@@ -43,7 +46,7 @@ SCRIPT = textwrap.dedent("""
     _, _, sem, _ = read_labeled_ply(out / "office_1" / "combined_pointcloud_with_label.ply")
     assert len(np.unique(sem)) > 3, np.unique(sem)
 
-    from ipcgen_tpu.config import PipelineConfig
+    from ipcgen_tpu_torch.config import PipelineConfig
     from ipcgen_tpu_torch.sim.simulator import S3DISSimulator
 
     tree = PipelineConfig.from_dict({
@@ -60,8 +63,8 @@ SCRIPT = textwrap.dedent("""
     assert len(counts) == len(want) and all(
         abs(a - b) <= 0.005 * b for a, b in zip(counts, want)), (counts, want)
     assert (out / "culled" / "combined_pointcloud_with_label.ply").is_file()
-    assert all(sys.modules[n] is None for n in ("jax", "matplotlib", "yaml"))
-    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "matplotlib", "yaml")
+    assert all(sys.modules[n] is None for n in BLOCKED)
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED + ("jaxlib",)
               and sys.modules[m] is not None]
     assert not leaked, leaked
     print("NO_JAX_OK")
@@ -69,6 +72,7 @@ SCRIPT = textwrap.dedent("""
 
 
 def test_slice_runs_without_jax_matplotlib_yaml(tmp_path):
+    """Also without ``ipcgen_tpu``: the subprocess blocks it with the rest."""
     env = dict(os.environ, PYTHONPATH=str(REPO), HOME=str(tmp_path),
                OMP_NUM_THREADS="2")
     proc = subprocess.run(
@@ -79,9 +83,31 @@ def test_slice_runs_without_jax_matplotlib_yaml(tmp_path):
         proc.stdout[-2000:], proc.stderr[-4000:])
 
 
+PORT_FILES = sorted((REPO / "ipcgen_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+# ``\b`` ends the name, so ``ipcgen_tpu_torch`` itself does not match.
+JAX_IMPORT = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
+JAX_PACKAGE_IMPORT = re.compile(r"^\s*(import|from)\s+ipcgen_tpu\b", re.M)
+
+
+def offenders(pattern):
+    assert len(PORT_FILES) > 30
+    return [str(f) for f in PORT_FILES if pattern.search(f.read_text())]
+
+
 def test_no_jax_import_in_port_sources():
-    pattern = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
-    files = list((REPO / "ipcgen_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
-    offenders = [str(f) for f in files if pattern.search(f.read_text())]
-    assert not offenders, offenders
+    assert not offenders(JAX_IMPORT)
+
+
+def test_no_jax_package_import_in_port_sources():
+    assert not offenders(JAX_PACKAGE_IMPORT)
+
+
+@pytest.mark.parametrize("line, hit", [
+    ("    from ipcgen_tpu.containers import TriMesh\n", True),
+    ("import ipcgen_tpu\n", True),
+    ("from ipcgen_tpu import config\n", True),
+    ("from ipcgen_tpu_torch.containers import TriMesh\n", False),
+    ("# see ipcgen_tpu/ops/raycast_mxu.py\n", False),
+])
+def test_source_scan_catches_a_jax_package_import(line, hit):
+    assert bool(JAX_PACKAGE_IMPORT.search(line)) == hit

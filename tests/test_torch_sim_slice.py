@@ -46,18 +46,22 @@ PLY = "combined_pointcloud_with_label.ply"
 @contextmanager
 def planned_waypoints(store: list):
     """Append each auto-planned trajectory, as (x, y, z, yaw) rows, to
-    ``store``: both packages plan with the JAX package's host planner."""
+    ``store``, from the JAX package's host planner or the port's copy."""
     from ipcgen_tpu.trajectory import AutoTrajectoryGenerator
+    from ipcgen_tpu_torch.trajectory import AutoTrajectoryGenerator as PortGenerator
 
-    real = AutoTrajectoryGenerator.generate_optimal_trajectory
+    def recorder(real):
+        def record(self, *args, **kwargs):
+            waypoints, info = real(self, *args, **kwargs)
+            store.append([(w.x, w.y, w.z, w.yaw) for w in waypoints])
+            return waypoints, info
 
-    def record(self, *args, **kwargs):
-        waypoints, info = real(self, *args, **kwargs)
-        store.append([(w.x, w.y, w.z, w.yaw) for w in waypoints])
-        return waypoints, info
+        return record
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(AutoTrajectoryGenerator, "generate_optimal_trajectory", record)
+        for cls in (AutoTrajectoryGenerator, PortGenerator):
+            mp.setattr(cls, "generate_optimal_trajectory",
+                       recorder(cls.generate_optimal_trajectory))
         yield
 
 
