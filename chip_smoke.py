@@ -8,11 +8,13 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
 1. environment: torch, CUDA, nvcc and the card's name and power limit;
 2. build the CUDA kernels from ``ipcgen_tpu_torch/csrc`` (one nvcc per
    source, all at once) and print the seconds each took;
-3. pair kernel against its plain PyTorch version on the card, on a
-   159,744-triangle synthetic room: 256 k coherent scan rays, 256 k
-   incoherent rays (ray-sorted, as raycast_asset's "auto" does for them) and a set whose
-   every subtile walks all blocks; same slot on >= 99.99 % of rays and t
-   within 1e-5 relative, with both times;
+3. the pair prepass kernel and the pair kernel against their plain PyTorch
+   versions on the card, on a 159,744-triangle synthetic room: 256 k
+   coherent scan rays, 256 k incoherent rays (ray-sorted, as raycast_asset's
+   "auto" does for them) and, for the pair kernel, a set whose every subtile
+   walks all blocks.  The prepass's offsets, blocks, group counts and union
+   sizes must be identical; the pair kernel must give the same slot on
+   >= 99.99 % of rays and t within 1e-5 relative.  Both times each;
 4. the main path at real scale: a 638,976-triangle room and a 600 k-point
    S3DIS-format TLS room written from the same surfaces, then
    ``run_single_scene_simulation`` with the BLK2GO profile and again with
@@ -22,16 +24,19 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    scipy cKDTree 1-NN into the TLS cloud on >= 99.9 %.  Then the run's own
    rays are rebuilt from its poses and seed and cast again exactly as the
    scan casts them (patch order, unsorted, 2048-ray tiles): that must give
-   back every frame's points, and ten whole tiles of it (20,480 rays, half
-   of them from tiles whose subtiles walk every block when the run has
-   such tiles) must meet the raycast contract against the brute oracle
+   back every frame's points, and ten whole tiles of it (20,480 rays) must
+   meet the raycast contract against the brute oracle
    on the card (hit masks agree >= 99 %, same triangle >= 99 %, hit-point
-   error p99 <= 5 mm and max <= 5 cm).  A ray over the 5 cm bound passes
+   error p99 <= 5 mm and max <= 5 cm), half of them from tiles that JAX's
+   caps on its candidate lists overflow (the rays that took its walk-all
+   fallback).  A ray over the 5 cm bound passes
    only if float64 on the original mesh shows it within the float32
    rounding bound of the kernel's edge test (``graze_bound``) of an edge of
    the nearer triangle, and such grazes stay under 0.1 % of the rays.  The
-   kernel is also held against its plain version on those same inputs of
-   each run.
+   prepass kernel and the pair kernel are also held against their plain
+   versions on those same inputs of each run, and the ray-triangle tests the
+   pair kernel runs must equal those of the exact lists: no subtile walks
+   every block.
 5. culled kernel against its plain version and the block-scan oracle, bit
    for bit in t and slot: 256 k dense-32 rays in beam order (as the culled
    scan casts them) on the 159,744-triangle room, and the 8,192-ray
@@ -46,7 +51,9 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    (20,480 rays) of them must equal the oracle bit for bit in t, tri_id,
    points and normals, and the kernel its plain version bit for bit.  Every
    frame's point count must agree with the pair kernel's BLK2GO run (same
-   seed, so the same waypoints and rays) within 1 %.
+   seed, so the same waypoints and rays) within 1 %.  The culled kernel's
+   bound over all the run's rays counts the block visits of a torch pass
+   that culls with each ray's final t: a subset of the kernel's visits.
 7. the kernel probe (``python -m ipcgen_tpu_torch.kernel_probe``, the port
    of ``scripts/kernel_probe.py``) on the 159,744-triangle room with its
    2.56 M patch-ordered dense-32 rays: every mode of ``call``, ``grid32``
@@ -65,7 +72,8 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the fp32 operations these rays need (exact
-candidate lists, or the culled kernel's block visits) over 67 TFLOP/s.
+candidate lists, the prepass's slab tests, or the culled kernel's block
+visits) over 67 TFLOP/s.
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Needs ``torch.cuda.is_available()``.
 """
@@ -93,8 +101,10 @@ PEAK_BYTES = 3.35e12
 # fp32 operations per ray-triangle test, counted from the kernels' sources:
 # 25 FMAs (csrc/raycast_pairs.cu, csrc/raycast_probe.cu), 75 for the probe's
 # bf16 split, and Moller-Trumbore's 45 products, sums and differences plus
-# one divide (csrc/raycast_culled.cu).
-FLOPS_PER_TEST = {"pairs": 50, "bf16": 150, "culled": 46}
+# one divide (csrc/raycast_culled.cu); per slab test of the pair prepass
+# (csrc/raycast_pairs.cu slab): 6 differences, 6 products, 6 NaN checks,
+# 13 min / max and 2 compares.
+FLOPS_PER_TEST = {"pairs": 50, "bf16": 150, "culled": 46, "slab": 33}
 PROBE_SUBSET_TILES = 64
 PROBE_SUBSET_OVERFLOWED = 8
 
@@ -121,27 +131,21 @@ def bound(n_bytes: int, flops: float) -> dict:
                 bytes=int(n_bytes), flops=float(flops))
 
 
-def exact_list_tests(o, d, asset, t_max: float, tile: int, n_sub: int) -> int:
-    """Ray-triangle tests of exact candidate lists for these rays: the
-    prepass rerun with vmax = NB and every block group, so no tile
-    overflows, in ``tile``-ray tiles of ``n_sub`` subtiles."""
+def exact_list_tests(o, d, asset, t_max: float, tile: int) -> int:
+    """Ray-triangle tests of exact per-tile candidate lists for these rays
+    (the probe's 1024-ray tiles): the plain exact prepass, one subtile a
+    tile."""
     import torch
 
-    from ipcgen_tpu_torch.ops.raycast_pairs import candidate_blocks, subtile_pairs
+    from ipcgen_tpu_torch.ops.raycast_pairs import exact_prepass_plain
 
     pad = (-o.shape[0]) % tile
     if pad:  # as prepare_pairs pads: the last ray repeated
         o = torch.cat([o, o[-1:].expand(pad, 3)])
         d = torch.cat([d, d[-1:].expand(pad, 3)])
-    nb, tb = asset.num_blocks, asset.tri_data.shape[2]
-    ids, counts, ovf, masks = candidate_blocks(
-        o, d, asset.block_lo, asset.block_hi, t_max=t_max, vmax=nb, group=8,
-        gmax=-(-nb // 8), tile=tile, n_sub=n_sub)
-    require(not bool(ovf.any()), "the exact prepass overflowed")
-    if n_sub == 1:
-        return int(counts.sum()) * tile * tb
-    _, blocks, _ = subtile_pairs(ids, counts, ovf, masks, n_sub)
-    return blocks.numel() * (tile // n_sub) * tb
+    _, blocks, _, _ = exact_prepass_plain(o, d, asset.block_lo, asset.block_hi,
+                                          t_max=t_max, group=8, tile=tile, n_sub=1)
+    return blocks.numel() * tile * asset.tri_data.shape[2]
 
 
 # ---------------------------------------------------------------------------
@@ -185,8 +189,7 @@ def kernel_vs_plain(p: dict, label: str, kernel_reps: int = 5,
     from ipcgen_tpu_torch.ops import _kernels
     from ipcgen_tpu_torch.ops.raycast_pairs import raycast_pairs_plain
 
-    args = (p["f"], p["trif"], p["offsets"], p["blocks"], p["walk_all"],
-            p["t_init"], p["sub"])
+    args = (p["f"], p["trif"], p["offsets"], p["blocks"], p["t_init"], p["sub"])
     t_k, s_k = _kernels.raycast_pairs_cuda(*args)
     t_p, s_p = raycast_pairs_plain(*args)
     torch.cuda.synchronize()
@@ -199,9 +202,8 @@ def kernel_vs_plain(p: dict, label: str, kernel_reps: int = 5,
     ms = time_ms(lambda: _kernels.raycast_pairs_cuda(*args), kernel_reps)
     plain_ms = time_ms(lambda: raycast_pairs_plain(*args), plain_reps)
     n_rays = p["f"].shape[0]
-    walk = int(p["walk_all"].sum())
-    log(f"[kernel] {label}: rays {n_rays} subtiles {p['walk_all'].numel()} "
-        f"pairs {p['blocks'].numel()} walk-all subtiles {walk} | same slot "
+    log(f"[kernel] {label}: rays {n_rays} subtiles {p['offsets'].numel() - 1} "
+        f"pairs {p['blocks'].numel()} | same slot "
         f"{same_frac:.6f} max rel t err {max_rel:.3e} | kernel {ms:.3f} ms "
         f"plain {plain_ms:.3f} ms")
     require(same_frac >= 0.9999, f"{label}: same slot on {same_frac:.6f} < 0.9999")
@@ -210,18 +212,61 @@ def kernel_vs_plain(p: dict, label: str, kernel_reps: int = 5,
                 same_slot=same_frac, rays=n_rays)
 
 
+def prepass_vs_plain(p: dict, asset, label: str, kernel_reps: int = 5) -> dict:
+    """The prepass kernel and its plain version on the rays ``prepare_pairs``
+    gave it: offsets, blocks, group counts and union sizes identical, both
+    times, and the bound of the slab tests these rays need."""
+    import torch
+
+    from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.ops.raycast_pairs import exact_prepass_plain, group_boxes
+
+    tile = p["tile"]
+    kw = dict(t_max=p["t_init"], group=p["group"], tile=tile, n_sub=tile // p["sub"])
+    o, d = p["origins"], p["dirs"]
+    boxes = (asset.block_lo, asset.block_hi, *group_boxes(asset.block_lo, asset.block_hi,
+                                                          p["group"]))
+
+    def kernel():
+        return _kernels.raycast_pairs_prepass_cuda(o, d, *boxes, p["group"], p["t_init"],
+                                                   kw["n_sub"])
+
+    got = kernel()
+    want = exact_prepass_plain(o, d, asset.block_lo, asset.block_hi, **kw)
+    torch.cuda.synchronize()
+    same = {name: bool(torch.equal(g, w))
+            for name, g, w in zip(("offsets", "blocks", "groups", "union"), got, want)}
+    ms = time_ms(kernel, kernel_reps)
+    plain_ms = time_ms(lambda: exact_prepass_plain(o, d, asset.block_lo, asset.block_hi,
+                                                   **kw), 1)
+    n_tiles = o.shape[0] // tile
+    ng = boxes[2].shape[0]
+    require(asset.num_blocks % p["group"] == 0, "the bound counts whole groups")
+    # Stage 1: every ray against every group; stage 2: against each block of
+    # the groups its tile crosses.
+    slab_tests = n_tiles * ng * tile + int(got[2].sum()) * p["group"] * tile
+    res = dict(rays=int(o.shape[0]), tiles=n_tiles, pairs=int(got[1].numel()),
+               plain_pairs=int(want[1].numel()), identical=same, ms=ms,
+               plain_ms=plain_ms, slab_tests=slab_tests)
+    res.update(bound(nbytes(o, d, *boxes, *got), slab_tests * FLOPS_PER_TEST["slab"]))
+    log(f"[prepass] {label}: {json.dumps(res)}")
+    require(all(same.values()), f"{label}: prepass kernel differs from its plain version")
+    return res
+
+
 def phase_kernel_check(device, asset) -> dict:
     import torch
 
     from ipcgen_tpu_torch.models.lidar_intrinsics import Indoor8LineLidarIntrinsics
-    from ipcgen_tpu_torch.ops.raycast_pairs import prepare_pairs
+    from ipcgen_tpu_torch.ops.raycast_pairs import expand_walk_all, prepare_pairs
     from ipcgen_tpu_torch.sim.scan import scan_rays
 
     comps = (asset.tri_data, asset.block_lo, asset.block_hi)
     o, d, _ = scan_rays(Indoor8LineLidarIntrinsics.create_dense_32line(),
                         room_poses(2, seed=1), None, device)
-    out = {"coherent_256k": kernel_vs_plain(
-        prepare_pairs(o, d, *comps, t_max=MAX_RANGE), "coherent 256k")}
+    p = prepare_pairs(o, d, *comps, t_max=MAX_RANGE)
+    prepass = {"coherent_256k": prepass_vs_plain(p, asset, "coherent 256k")}
+    out = {"coherent_256k": kernel_vs_plain(p, "coherent 256k")}
     g = torch.Generator(device=device).manual_seed(2)
     n = 256_000
     oi = torch.rand((n, 3), generator=g, device=device) \
@@ -229,14 +274,20 @@ def phase_kernel_check(device, asset) -> dict:
         + torch.tensor([0.5, 0.5, 0.3], device=device)
     di = torch.randn((n, 3), generator=g, device=device)
     di = di / di.norm(dim=1, keepdim=True)
-    out["incoherent_256k"] = kernel_vs_plain(
-        prepare_pairs(oi, di, *comps, t_max=MAX_RANGE, sort_rays=True),
-        "incoherent 256k (sorted)", plain_reps=1)
+    p = prepare_pairs(oi, di, *comps, t_max=MAX_RANGE, sort_rays=True)
+    prepass["incoherent_256k"] = prepass_vs_plain(p, asset, "incoherent 256k (sorted)")
+    out["incoherent_256k"] = kernel_vs_plain(p, "incoherent 256k (sorted)", plain_reps=1)
     p = prepare_pairs(o[:8192], d[:8192], *comps, t_max=MAX_RANGE)
-    p["walk_all"] = torch.ones_like(p["walk_all"])
+    # Every subtile walks every block: expand_walk_all lists them all.
+    p["offsets"], p["blocks"] = expand_walk_all(
+        p["offsets"], p["blocks"],
+        torch.ones(p["offsets"].numel() - 1, dtype=torch.int32, device=device),
+        asset.num_blocks)
+    require(p["blocks"].numel() == (p["offsets"].numel() - 1) * asset.num_blocks,
+            "the forced walk-all list does not list every block")
     out["walk_all_8k"] = kernel_vs_plain(p, "forced walk-all 8k",
                                          kernel_reps=2, plain_reps=1)
-    return out
+    return out, prepass
 
 
 # ---------------------------------------------------------------------------
@@ -423,7 +474,7 @@ def phase_probe(device, asset) -> dict:
         log(f"[probe] {name}: {json.dumps(c)}")
 
     # Bounds: the work these rays need (exact lists, nothing overflowed).
-    exact = exact_list_tests(run["origins"], run["dirs"], asset, base["t_init"], 1024, 1)
+    exact = exact_list_tests(run["origins"], run["dirs"], asset, base["t_init"], 1024)
     out_bytes = 8 * run["rays"]
     bounds = {
         "call": bound(nbytes(base["f"], base["ids"], base["counts"], base["ovf"],
@@ -504,9 +555,10 @@ def graze_bound(o, d, tri, center):
 def check_own_rays(asset, intr, sc, tri_xyz, seed: int, device, n_tiles: int = 10):
     """Rebuild the run's rays and cast them as the scan does; check that this
     gives back the run's frames, then hold ``n_tiles`` whole tiles of it to
-    the raycast contract against the brute oracle.  ``tri_xyz`` (n, 3, 3)
-    holds the mesh's triangles by original id.  Returns the contract figures
-    and the kernel's inputs for those rays."""
+    the raycast contract against the brute oracle, half of them from tiles
+    that JAX's caps overflow.  ``tri_xyz`` (n, 3, 3) holds the mesh's
+    triangles by original id.  Returns the contract figures and the pair
+    kernel's inputs for those rays."""
     import torch
 
     from ipcgen_tpu_torch.ops.raycast import raycast_asset
@@ -534,12 +586,13 @@ def check_own_rays(asset, intr, sc, tri_xyz, seed: int, device, n_tiles: int = 1
             frame_err = max(frame_err, float(np.abs(mine - frame.points).max()))
     require(frame_err <= 1e-5, f"frames not reproduced: max point error {frame_err} m")
 
-    # Whole tiles of the scan's tiling; half from tiles with walk-all subtiles.
-    tile, n_sub = p["tile"], p["tile"] // p["sub"]
+    # Whole tiles of the scan's tiling; half from tiles that JAX's caps
+    # overflow (its walk-all fallback's rays).
+    tile = p["tile"]
     n_full = o.shape[0] // tile
-    walk = p["walk_all"].view(-1, n_sub)[:n_full].any(dim=1).cpu().numpy()
+    over_cap = p["overflow"][:n_full].cpu().numpy()
     rng = np.random.default_rng(4)
-    ovf, lst = np.flatnonzero(walk), np.flatnonzero(~walk)
+    ovf, lst = np.flatnonzero(over_cap), np.flatnonzero(~over_cap)
     k_ovf = min(len(ovf), n_tiles // 2)
     tiles = np.sort(np.concatenate([rng.choice(ovf, k_ovf, replace=False),
                                     rng.choice(lst, n_tiles - k_ovf, replace=False)]))
@@ -565,7 +618,8 @@ def check_own_rays(asset, intr, sc, tri_xyz, seed: int, device, n_tiles: int = 1
     pe_rest = pe[pe <= 0.05]
     res = dict(config=f"unsorted, {tile}-ray tiles, group {p['group']}, gmax "
                       f"{p['gmax']}, vmax {p['vmax']}",
-               tiles=len(tiles), walk_all_tiles=int(k_ovf), rays=int(idx.numel()),
+               tiles=len(tiles), over_cap_tiles=int(k_ovf),
+               over_cap_frac=float(over_cap.mean()), rays=int(idx.numel()),
                frames_max_err_m=frame_err,
                hit_agree=float((hk == ho).mean()),
                same_tri=float(same.sum() / max(both.sum(), 1)),
@@ -573,15 +627,6 @@ def check_own_rays(asset, intr, sc, tri_xyz, seed: int, device, n_tiles: int = 1
                max_mm=float(pe.max() * 1e3) if len(pe) else 0.0,
                max_mm_without_grazes=float(pe_rest.max() * 1e3) if len(pe_rest) else 0.0,
                grazes=grazes)
-    # The work the kernel needs for these rays (exact lists) beside what it
-    # runs (its lists, and every block for a walk-all subtile).
-    n_sub = tile // p["sub"]
-    walk_sub = p["walk_all"] != 0
-    counts = (p["offsets"][1:] - p["offsets"][:-1]).long()
-    per_pair = p["sub"] * asset.tri_data.shape[2]
-    res["exact_list_tests"] = exact_list_tests(o, d, asset, max_range, tile, n_sub)
-    res["kernel_tests"] = (int(counts[~walk_sub].sum()) + int(walk_sub.sum())
-                           * asset.num_blocks) * per_pair
     require(res["hit_agree"] >= 0.99, f"hit agreement {res}")
     require(res["same_tri"] >= 0.99, f"same triangle {res}")
     require(res["p99_mm"] <= 5.0, f"point error p99 {res}")
@@ -630,8 +675,9 @@ def phase_main_path(device, work: Path, card: str):
         rays = n_frames * intr.get_total_points_per_scan()
         log(f"[main] {profile}: {n_frames} frames, {rays} rays, "
             f"{sum(n_points)} points, {wall:.2f} s wall, launches {launches}")
-        require(launches["raycast_pairs"] > 0 and launches["raycast_culled"] == 0,
-                f"{profile}: the pair kernel alone must run: {launches}")
+        require(launches["raycast_pairs"] > 0 and launches["raycast_pairs_prepass"] > 0
+                and launches["raycast_culled"] == 0,
+                f"{profile}: the pair prepass and pair kernels alone must run: {launches}")
         require(n_frames > 0 and min(n_points) > 0, f"{profile}: empty frame")
         ply = work / "out" / f"synth_{profile}" / "combined_pointcloud_with_label.ply"
         require(ply.is_file(), f"{profile}: labeled PLY missing")
@@ -644,20 +690,31 @@ def phase_main_path(device, work: Path, card: str):
                                          device=device)
         log(f"[main] {profile}: the run's rays cast again reproduce its frames; "
             f"raycast contract vs oracle {contract}")
+        prepass = prepass_vs_plain(pairs, asset, f"{profile} main-path inputs ({rays} rays)",
+                                   kernel_reps=3)
         at_shape = kernel_vs_plain(
             pairs, f"{profile} main-path inputs ({rays} rays)",
             kernel_reps=3, plain_reps=1)
+        # The work the pair kernel needs for these rays (the plain version's
+        # exact lists) beside what it runs (the kernel prepass's lists).
+        per_pair = pairs["sub"] * asset.tri_data.shape[2]
+        at_shape["exact_list_tests"] = prepass["plain_pairs"] * per_pair
+        at_shape["tests_run"] = int(pairs["blocks"].numel()) * per_pair
         at_shape.update(bound(
-            nbytes(*(pairs[k] for k in ("f", "trif", "offsets", "blocks", "walk_all")))
+            nbytes(*(pairs[k] for k in ("f", "trif", "offsets", "blocks")))
             + 8 * pairs["f"].shape[0],
-            contract["exact_list_tests"] * FLOPS_PER_TEST["pairs"]))
+            at_shape["exact_list_tests"] * FLOPS_PER_TEST["pairs"]))
         log(f"[main] {profile}: pair kernel {at_shape['ms']:.3f} ms, bound "
             f"{at_shape['bound_ms']:.3f} ms ({at_shape['bound_by']}), exact-list tests "
-            f"{contract['exact_list_tests']:.4e}, tests run {contract['kernel_tests']:.4e}")
+            f"{at_shape['exact_list_tests']:.4e}, tests run {at_shape['tests_run']:.4e}; "
+            f"prepass {prepass['ms']:.3f} ms, bound {prepass['bound_ms']:.3f} ms "
+            f"({prepass['bound_by']})")
+        require(at_shape["tests_run"] == at_shape["exact_list_tests"],
+                f"{profile}: the pair kernel's tests differ from the exact lists'")
         del pairs
         runs[profile] = dict(launches=launches, wall_s=wall, rays=rays,
                              frames=n_frames, points=n_points, stages=stages,
-                             kernel=at_shape)
+                             kernel=at_shape, prepass=prepass)
     occupancy = check_occupancy(asset, v, t)
     culled = phase_culled_main_path(device, work, card, mesh_path, data_root,
                                     asset, runs["blk2go"])
@@ -697,6 +754,36 @@ def check_occupancy(asset, v, t) -> dict:
     return res
 
 
+def culled_visit_floor(o, d, asset, t_final) -> int:
+    """(group, leaf block) visits of the culled walk when every ray's best is
+    its final t from the start: each 256-ray group visits a super, then a
+    leaf block of it, when any of its rays passes the slab test before that
+    t.  The kernel's running best never falls below the final t, so it makes
+    at least these visits."""
+    import torch
+
+    from ipcgen_tpu_torch.ops.geometry import ray_aabb_hit
+    from ipcgen_tpu_torch.ops.raycast_culled import GROUP
+
+    require(o.shape[0] % GROUP == 0, "the visit floor takes whole groups")
+    ray = (o[:, 0], o[:, 1], o[:, 2], 1.0 / d[:, 0], 1.0 / d[:, 1], 1.0 / d[:, 2], t_final)
+    lane = torch.arange(GROUP, device=o.device)
+    all_groups = torch.arange(o.shape[0] // GROUP, device=o.device)
+    nb, sf = asset.num_blocks, asset.super_factor
+    visits = 0
+    for s in range(asset.super_lo.shape[0]):
+        hit = ray_aabb_hit(*ray[:6], asset.super_lo[s], asset.super_hi[s], ray[6])
+        groups = all_groups[hit.view(-1, GROUP).any(dim=1)]
+        if not groups.numel():
+            continue
+        rows = (groups[:, None] * GROUP + lane).reshape(-1)
+        sub = [x[rows] for x in ray]
+        for b in range(s * sf, min((s + 1) * sf, nb)):
+            visits += int(ray_aabb_hit(*sub[:6], asset.block_lo[b], asset.block_hi[b], sub[6])
+                          .view(-1, GROUP).any(dim=1).sum())
+    return visits
+
+
 def phase_culled_main_path(device, work: Path, card: str, mesh_path: Path,
                            data_root: Path, asset, pair_run: dict,
                            n_groups: int = 80) -> dict:
@@ -707,7 +794,7 @@ def phase_culled_main_path(device, work: Path, card: str, mesh_path: Path,
     from ipcgen_tpu_torch.config import PipelineConfig
     from ipcgen_tpu_torch.ops import _kernels
     from ipcgen_tpu_torch.ops.raycast import raycast_asset
-    from ipcgen_tpu_torch.ops.raycast_culled import GROUP
+    from ipcgen_tpu_torch.ops.raycast_culled import GROUP, t_init_for
     from ipcgen_tpu_torch.sim.scan import scan_rays
     from ipcgen_tpu_torch.sim.simulator import S3DISSimulator
     from ipcgen_tpu_torch.utils.device import sync
@@ -790,11 +877,21 @@ def phase_culled_main_path(device, work: Path, card: str, mesh_path: Path,
     full_ms = time_ms(lambda: _kernels.raycast_culled_cuda(
         o, d, asset.tri_data, asset.block_lo, asset.block_hi, asset.super_lo,
         asset.super_hi, asset.super_factor, max_range), 3)
+    t0 = time.time()
+    visits = culled_visit_floor(o, d, asset, torch.where(rk.hit, rk.t, torch.full_like(
+        rk.t, t_init_for(max_range))))
+    full_bound = bound(nbytes(o, d, asset.tri_data, asset.block_lo, asset.block_hi,
+                              asset.super_lo, asset.super_hi) + 8 * o.shape[0],
+                       visits * GROUP * asset.tri_data.shape[2] * FLOPS_PER_TEST["culled"])
     log(f"[culled-main] culled kernel over all {o.shape[0]} rays of the run: "
-        f"{full_ms:.3f} ms")
+        f"{full_ms:.3f} ms; bound {full_bound['bound_ms']:.3f} ms "
+        f"({full_bound['bound_by']}) from at least {visits} block visits (counted in "
+        f"{time.time() - t0:.1f} s)")
     return dict(launches=launches, wall_s=wall, rays=rays, frames=w, stages=stages,
                 rays_per_s=rate, label_agree=label_agree, oracle_rays=int(idx.numel()),
-                kernel=subset, full_scan_rays=int(o.shape[0]), full_scan_ms=full_ms)
+                kernel=subset, full_scan_rays=int(o.shape[0]), full_scan_ms=full_ms,
+                full_scan_block_visits=visits, full_scan_bound_ms=full_bound["bound_ms"],
+                full_scan_bound_by=full_bound["bound_by"])
 
 
 def main() -> int:
@@ -827,7 +924,7 @@ def main() -> int:
     v, t = synthetic_room(TRIANGLES_KERNEL_CHECK)
     asset = build_scene_asset(v, t, device=device)
     log(f"[kernel] room: {len(t)} triangles, {asset.num_blocks} blocks")
-    checks = phase_kernel_check(device, asset)
+    checks, prepass_checks = phase_kernel_check(device, asset)
     culled_checks = phase_culled_kernel_check(device, asset)
     probe = phase_probe(device, asset)
     del asset
@@ -838,7 +935,9 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
 
     launches = sum(r["launches"]["raycast_pairs"] for r in runs.values())
+    prepass_launches = sum(r["launches"]["raycast_pairs_prepass"] for r in runs.values())
     at_shape = runs["blk2go"]["kernel"]  # the default profile
+    prepass = runs["blk2go"]["prepass"]
     yardstick = {"library_ms": None}  # no PyTorch call computes a nearest hit
     bound_keys = ("bound_ms", "bound_by")
     record = {"kernels": [{
@@ -855,9 +954,29 @@ def main() -> int:
         **{k: at_shape[k] for k in bound_keys}, **yardstick,
         "main_path_inputs": {
             k: {"rays": r["kernel"]["rays"], "ms": r["kernel"]["ms"],
-                "plain_ms": r["kernel"]["plain_ms"], "bound_ms": r["kernel"]["bound_ms"]}
+                "plain_ms": r["kernel"]["plain_ms"], "bound_ms": r["kernel"]["bound_ms"],
+                "tests_run": r["kernel"]["tests_run"],
+                "exact_list_tests": r["kernel"]["exact_list_tests"]}
             for k, r in runs.items()},
         "occupancy": occupancy,
+    }, {
+        "name": "pairs_prepass_kernel",
+        "route": "cuda",
+        "source": "ipcgen_tpu_torch/csrc/raycast_pairs.cu",
+        "replaces": "ipcgen_tpu/ops/raycast_mxu.py:297",
+        "replaces_note": "not a Pallas kernel (XLA candidate_blocks)",
+        "launches": prepass_launches,
+        "max_abs_err": 0.0,
+        "ms": prepass["ms"],
+        "plain_ms": prepass["plain_ms"],
+        **{k: prepass[k] for k in bound_keys}, **yardstick,
+        "main_path_inputs": {
+            k: {key: r["prepass"][key] for key in
+                ("rays", "ms", "plain_ms", "bound_ms", "bound_by", "slab_tests", "pairs")}
+            for k, r in runs.items()},
+        "kernel_check_inputs": {
+            k: {key: c[key] for key in ("rays", "ms", "plain_ms", "bound_ms", "pairs")}
+            for k, c in prepass_checks.items()},
     }, {
         "name": "raycast_culled_kernel",
         "route": "cuda",
@@ -874,7 +993,10 @@ def main() -> int:
                               "ms": culled["kernel"]["ms"],
                               "plain_ms": culled["kernel"]["plain_ms"],
                               "full_scan_rays": culled["full_scan_rays"],
-                              "full_scan_ms": culled["full_scan_ms"]}},
+                              "full_scan_ms": culled["full_scan_ms"],
+                              "full_scan_bound_ms": culled["full_scan_bound_ms"],
+                              "full_scan_bound_by": culled["full_scan_bound_by"],
+                              "full_scan_block_visits": culled["full_scan_block_visits"]}},
         "kernel_check_inputs": {
             k: {"rays": c["rays"], "ms": c["ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"]}

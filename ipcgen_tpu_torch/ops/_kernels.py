@@ -13,8 +13,9 @@ Each library is bound with ``ctypes`` through a plain C interface: one
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on the current stream
-without synchronising, raises if the launch was refused, and adds one to its
-kernel's entry of ``LAUNCHES``.  Nothing here falls back to another path.
+without synchronising (the prepass reads one total between its two passes),
+raises if a launch was refused, and adds one to its kernel's entry of
+``LAUNCHES``.  Nothing here falls back to another path.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ _C_PTR, _C_INT, _C_FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Kernel name -> (its source, the argtypes of ``<kernel>_launch``).
 KERNELS = {
     "raycast_pairs": ("raycast_pairs", [_C_PTR] * 7 + [_C_INT] * 4 + [_C_FLOAT, _C_PTR]),
+    "raycast_pairs_prepass": ("raycast_pairs",
+                              [_C_PTR] * 12 + [_C_INT] * 4 + [_C_FLOAT, _C_INT, _C_PTR]),
     "raycast_culled": ("raycast_culled",
                        [_C_PTR] * 9 + [_C_INT] * 5 + [_C_FLOAT, _C_PTR]),
     "raycast_probe_call": ("raycast_probe",
@@ -143,9 +146,10 @@ def _check(x: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, *args, count: bool = True) -> None:
     """Call kernel ``name``'s ``<name>_launch`` on the current stream of
-    ``device``; raise if the launch was refused, else count it."""
+    ``device``; raise if the launch was refused, else count it (unless
+    ``count`` is False: the first of a wrapper's two passes)."""
     source = KERNELS[name][0]
     lib = build()[source]
     with torch.cuda.device(device):
@@ -154,16 +158,77 @@ def _launch(name: str, device: torch.device, *args) -> None:
     if rc != 0:
         msg = getattr(lib, f"{source}_error_string")(rc).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
-    LAUNCHES[name] += 1
+    if count:
+        LAUNCHES[name] += 1
 
 
-def raycast_pairs_cuda(f, trif, offsets, blocks, walk_all, t_init: float,
-                       sub: int):
-    """Launch ``raycast_pairs_kernel`` (csrc/raycast_pairs.cu).
+def raycast_pairs_prepass_cuda(origins, dirs, block_lo, block_hi, group_lo,
+                               group_hi, group: int, t_max: float, n_sub: int):
+    """Launch ``pairs_prepass_kernel`` (csrc/raycast_pairs.cu): the exact
+    candidate list of every 256-ray subtile, with no cap.
 
-    f (S*sub, 10) float32, trif (NB, 10, 5*TB) float32, offsets (S+1,)
-    int32, blocks (P,) int32, walk_all (S,) int32, all on one CUDA device.
-    Returns (t (S*sub,) float32, slot (S*sub,) int32).
+    origins, dirs (T * n_sub * 256, 3) float32; block_lo, block_hi (NB, 3)
+    and group_lo, group_hi (ceil(NB / group), 3) float32 (the NaN-aware
+    unions of ``group`` consecutive blocks); all on one CUDA device; n_sub in
+    1, 2, 4, 8 and ``group`` a power of two up to 128.  The count pass, then
+    CSR offsets by ``torch.cumsum`` and one host read of their total (it
+    sizes the list), then the fill pass, which reuses the count pass's group
+    bits (scratch of one bit per tile and group); one launch is counted.
+    Returns (offsets (S+1,) int32, blocks (P,) int32 ascending per subtile,
+    groups (T,) int32 block groups each tile crosses, union (T,) int32
+    blocks in the union of its subtiles' lists).
+    """
+    device = origins.device
+    if device.type != "cuda":
+        raise ValueError(f"raycast_pairs_prepass_cuda: origins is on {device}, not CUDA")
+    for x, name in ((origins, "origins"), (dirs, "dirs"), (block_lo, "block_lo"),
+                    (block_hi, "block_hi"), (group_lo, "group_lo"), (group_hi, "group_hi")):
+        _check(x, name, torch.float32, 2, device)
+    if n_sub not in (1, 2, 4, 8):
+        raise ValueError(f"n_sub must be 1, 2, 4 or 8, got {n_sub}")
+    if group not in (1, 2, 4, 8, 16, 32, 64, 128):
+        raise ValueError(f"group must be a power of two up to 128, got {group}")
+    tile = n_sub * 256
+    n, nb = origins.shape[0], block_lo.shape[0]
+    ng = -(-nb // group)
+    if origins.shape != (n, 3) or dirs.shape != (n, 3) or n == 0 or n % tile:
+        raise ValueError(f"origins/dirs: shapes {tuple(origins.shape)}, {tuple(dirs.shape)}, "
+                         f"expected (T * {tile}, 3) each, T > 0")
+    if nb == 0 or block_lo.shape != (nb, 3) or block_hi.shape != (nb, 3):
+        raise ValueError("block_lo/block_hi: expected (NB, 3) each, NB > 0")
+    if group_lo.shape != (ng, 3) or group_hi.shape != (ng, 3):
+        raise ValueError(f"group_lo/group_hi: expected ({ng}, 3) for {nb} blocks of {group}")
+    n_tiles = n // tile
+    i32 = dict(dtype=torch.int32, device=device)
+    sub_counts = torch.empty(n_tiles * n_sub, **i32)
+    groups = torch.empty(n_tiles, **i32)
+    union = torch.empty(n_tiles, **i32)
+    gbits = torch.empty(n_tiles * -(-ng // 32), **i32)
+    boxes = [x.data_ptr() for x in (origins, dirs, block_lo, block_hi, group_lo, group_hi)]
+    sizes = (n_tiles, n_sub, nb, int(group), float(t_max))
+    _launch("raycast_pairs_prepass", device, *boxes, sub_counts.data_ptr(),
+            groups.data_ptr(), union.data_ptr(), gbits.data_ptr(), None, None, *sizes, 0,
+            count=False)
+    offsets = torch.zeros(n_tiles * n_sub + 1, dtype=torch.int64, device=device)
+    offsets[1:] = torch.cumsum(sub_counts, 0)
+    n_pairs = int(offsets[-1])  # the one host read: it sizes the pair list
+    if n_pairs >= 2**31:
+        raise ValueError(f"{n_pairs} pairs do not fit int32 offsets")
+    offsets = offsets.to(torch.int32)
+    blocks = torch.empty(n_pairs, **i32)
+    _launch("raycast_pairs_prepass", device, *boxes, None, None, None, gbits.data_ptr(),
+            offsets.data_ptr(), blocks.data_ptr(), *sizes, 1)
+    return offsets, blocks, groups, union
+
+
+def raycast_pairs_cuda(f, trif, offsets, blocks, t_init: float, sub: int):
+    """Launch ``raycast_pairs_kernel`` (csrc/raycast_pairs.cu) over the flat
+    pair list: subtile s walks ``blocks[offsets[s]:offsets[s+1]]``.
+
+    f (S*256, 10) float32, trif (NB, 10, 5*TB) float32, offsets (S+1,)
+    int32 with offsets[0] = 0 and offsets[S] = P, blocks (P,) int32, all on
+    one CUDA device; ``sub`` must be 256.  Returns (t (S*256,) float32,
+    +inf on a miss; slot (S*256,) int32, -1 on a miss).
     """
     device = f.device
     if device.type != "cuda":
@@ -172,25 +237,24 @@ def raycast_pairs_cuda(f, trif, offsets, blocks, walk_all, t_init: float,
     _check(trif, "trif", torch.float32, 3, device)
     _check(offsets, "offsets", torch.int32, 1, device)
     _check(blocks, "blocks", torch.int32, 1, device)
-    _check(walk_all, "walk_all", torch.int32, 1, device)
-    n_subtiles = walk_all.shape[0]
+    if sub != 256:
+        raise ValueError(f"sub must be 256 (64 threads x 4 rays), got {sub}")
+    n_subtiles = offsets.shape[0] - 1
     nb, n_feat, width = trif.shape
-    if n_feat != 10 or width % 5:
+    if n_feat != 10 or width % 5 or nb == 0:
         raise ValueError(f"trif: shape {tuple(trif.shape)}, expected (NB, 10, 5*TB)")
-    if f.shape != (n_subtiles * sub, 10):
-        raise ValueError(f"f: shape {tuple(f.shape)}, expected ({n_subtiles * sub}, 10)")
-    if offsets.shape[0] != n_subtiles + 1:
-        raise ValueError("offsets: expected one more entry than walk_all")
-    if not 0 < sub <= 256:
-        raise ValueError(f"sub must be in 1..256, got {sub}")
+    if n_subtiles <= 0 or f.shape != (n_subtiles * sub, 10):
+        raise ValueError(f"f: shape {tuple(f.shape)}, expected ({n_subtiles * sub}, 10) "
+                         f"for {n_subtiles} subtiles (one fewer than offsets)")
+    tb = width // 5
+    vec = int(tb % 4 == 0 and trif.data_ptr() % 16 == 0)
+    best = torch.empty(n_subtiles * sub, dtype=torch.int64, device=device)
     t = torch.empty(n_subtiles * sub, dtype=torch.float32, device=device)
     slot = torch.empty(n_subtiles * sub, dtype=torch.int32, device=device)
-    if n_subtiles == 0:
-        return t, slot
     _launch("raycast_pairs", device,
-            f.data_ptr(), trif.data_ptr(), offsets.data_ptr(),
-            blocks.data_ptr(), walk_all.data_ptr(), t.data_ptr(),
-            slot.data_ptr(), n_subtiles, sub, nb, width // 5, float(t_init))
+            f.data_ptr(), trif.data_ptr(), offsets.data_ptr(), blocks.data_ptr(),
+            best.data_ptr(), t.data_ptr(), slot.data_ptr(), n_subtiles,
+            blocks.shape[0], tb, vec, float(t_init))
     return t, slot
 
 

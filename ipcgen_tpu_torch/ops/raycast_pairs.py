@@ -1,25 +1,29 @@
-"""Candidate-pair raycast: prepass, pair list, entry points, and the kernel's plain
-PyTorch version.
+"""Candidate-pair raycast: prepass, pair list, entry points, and the
+kernels' plain PyTorch versions.
 
 Port of ``ipcgen_tpu/ops/raycast_mxu.py``: ``build_trif``/``ray_features``
 (:110-202), the hierarchical candidate prepass (:208-401), the pair list
 (:800-844), the ray sort (:886-904) and ``raycast_mxu_components``
-(:907-1152).  What the two
-Pallas kernels compute (``_flat_kernel`` :619-732 and its exact fallback
-``_pairs_kernel`` :470-592) is the CUDA kernel in ``csrc/raycast_pairs.cu``,
-launched through ``ops/_kernels.py``; ``raycast_pairs_plain`` below is the
-same function in plain torch ops.
+(:907-1152).  Two CUDA kernels in ``csrc/raycast_pairs.cu``, launched
+through ``ops/_kernels.py``, do the work on the card: the exact prepass
+(the counterpart of the XLA ``candidate_blocks``; plain version
+``exact_prepass_plain``) and the pair walk (what the Pallas kernels
+``_flat_kernel`` :619-732 and its exact fallback ``_pairs_kernel`` :470-592
+compute; plain version ``raycast_pairs_plain``).
 
 How a ray is intersected
 ------------------------
 Rays are cut into tiles of 2048 rays (1024 when ray-sorted) and each tile
-into subtiles of 256 rays, one CUDA block each.  The prepass gives each tile the
-exact list of leaf blocks any of its rays can enter within ``t_max`` (two
-slab-test stages: block groups, then the groups' blocks), with one bit per
-subtile saying whether that subtile's rays enter the block.  A tile whose
-rays cross more than ``gmax`` groups or ``vmax`` blocks overflows.  The pair
-list turns that into one ascending block list per subtile; a subtile of an
-overflowed tile instead walks every block (the ``_pairs_kernel`` path).
+into subtiles of 256 rays.  The prepass gives each subtile the exact,
+ascending list of leaf blocks any of its rays can enter within ``t_max``
+(two slab-test stages: block groups, then the blocks of the groups that were
+hit), as a CSR pair list (``offsets``, ``blocks``).  Nothing caps the lists.
+The JAX package capped each tile at ``gmax`` groups and ``vmax`` blocks and
+sent a tile over either cap down a walk-all fallback; the port keeps that
+overflow predicate only as a statistic (``overflow``, ``overflow_frac``),
+which decides the "auto" ray sort as in JAX.  The pair walk runs over the
+(subtile, block) pairs in parallel.  A caller may still mark subtiles
+``walk_all``: ``expand_walk_all`` then lists every block for them.
 
 For each (ray, triangle) the five Pluecker products of ``build_trif`` give
 three edge sides, ``t_num`` and ``t_den``, all in float32 (the TPU's bf16x3
@@ -42,7 +46,7 @@ import torch
 from ipcgen_tpu_torch.ops.raycast import RaycastResult, finalize_result
 from ipcgen_tpu_torch.ops.scene_asset import SceneAsset
 
-SUB_MAX = 256  # rays per subtile = threads per CUDA block
+SUB_MAX = 256  # rays per subtile
 N_FEAT = 10  # ray feature rows: [d, (o - c) x d, o - c, 1]
 EPS_T = 1e-6  # t > eps as |num| > eps * |den|
 EPS_DEN = 1e-9  # |t_den| > eps
@@ -275,20 +279,95 @@ def subtile_pairs(ids, counts, overflow, masks, n_sub: int):
     return offsets, blocks, walk_all.contiguous()
 
 
+def group_boxes(block_lo, block_hi, group: int):
+    """(NG, 3) lo and hi of the block groups: the NaN-aware AABB union of
+    ``group`` consecutive blocks, NaN for a group of padding only (as in
+    ``candidate_blocks``)."""
+    nb = block_lo.shape[0]
+    ng = -(-nb // group)
+    nanrows = torch.full((ng * group - nb, 3), float("nan"), device=block_lo.device)
+    glo = _nanmin(torch.cat([block_lo, nanrows]).view(ng, group, 3), dim=1)
+    ghi = _nanmax(torch.cat([block_hi, nanrows]).view(ng, group, 3), dim=1)
+    return glo.contiguous(), ghi.contiguous()
+
+
+def exact_prepass_plain(origins, dirs, block_lo, block_hi, *, t_max: float,
+                        group: int, tile: int, n_sub: int):
+    """Plain PyTorch version of ``pairs_prepass_kernel``: ``candidate_blocks``
+    with no cap (every group, vmax = NB), then ``subtile_pairs``.
+
+    ``origins``/``dirs`` padded to a ``tile`` multiple.  Returns (offsets
+    (S+1,) int32, blocks (P,) int32, groups (T,) int32 block groups each
+    tile crosses, union (T,) int32 blocks in the union of its subtiles'
+    lists).
+    """
+    nb = block_lo.shape[0]
+    ng = -(-nb // group)
+    if nb >= (1 << (31 - n_sub)):  # candidate_blocks packs ids with subtile bits
+        raise ValueError(f"block count must be < 2^{31 - n_sub}, got {nb}")
+    ids, counts, ovf, masks = candidate_blocks(
+        origins, dirs, block_lo, block_hi, t_max=t_max, vmax=nb, group=group,
+        gmax=ng, tile=tile, n_sub=n_sub)
+    offsets, blocks, _ = subtile_pairs(ids, counts, ovf, masks, n_sub)
+    n_tiles = origins.shape[0] // tile
+    glo, ghi = group_boxes(block_lo, block_hi, group)
+    groups = _tile_slab_or(origins.view(n_tiles, tile, 3), dirs.view(n_tiles, tile, 3),
+                           glo, ghi, t_max).sum(dim=1).to(torch.int32)
+    return offsets, blocks, groups, counts
+
+
+def exact_prepass(origins, dirs, block_lo, block_hi, *, t_max: float, group: int,
+                  tile: int, n_sub: int):
+    """The prepass kernel for CUDA tensors, its plain version for CPU
+    tensors; see ``exact_prepass_plain``."""
+    if origins.device.type == "cuda":
+        from ipcgen_tpu_torch.ops import _kernels
+
+        return _kernels.raycast_pairs_prepass_cuda(
+            origins, dirs, block_lo, block_hi, *group_boxes(block_lo, block_hi, group),
+            group, t_max, n_sub)
+    if origins.device.type == "cpu":
+        return exact_prepass_plain(origins, dirs, block_lo, block_hi, t_max=t_max,
+                                   group=group, tile=tile, n_sub=n_sub)
+    raise ValueError(f"exact_prepass: unsupported device {origins.device}")
+
+
 # ---------------------------------------------------------------------------
-# The kernel's function: plain version and dispatch
+# The pair walk: pair list, plain version and dispatch
 # ---------------------------------------------------------------------------
-def raycast_pairs_plain(f, trif, offsets, blocks, walk_all, t_init: float,
-                        sub: int):
+def expand_walk_all(offsets, blocks, walk_all, nb: int):
+    """The flat pair list with every block 0..nb-1 listed, in order, for
+    each subtile whose ``walk_all`` flag is set (its own list is dropped).
+    ``walk_all`` None, or no flag set, leaves the list as it is."""
+    if walk_all is None or not bool(walk_all.any()):
+        return offsets, blocks
+    dev = offsets.device
+    counts = (offsets[1:] - offsets[:-1]).long()
+    walk = walk_all != 0
+    new_counts = torch.where(walk, torch.full_like(counts, nb), counts)
+    new_offsets = torch.zeros_like(offsets)
+    new_offsets[1:] = torch.cumsum(new_counts, 0).to(torch.int32)
+    n_pairs = int(new_offsets[-1])
+    pair_sub = torch.repeat_interleave(torch.arange(counts.numel(), device=dev),
+                                       new_counts, output_size=n_pairs)
+    j = torch.arange(n_pairs, device=dev) - new_offsets[pair_sub].long()
+    new_blocks = j.to(torch.int32)  # a walk-all subtile's j-th pair is block j
+    keep = ~walk[pair_sub]
+    new_blocks[keep] = blocks[(offsets[pair_sub].long() + j)[keep]]
+    return new_offsets, new_blocks
+
+
+def raycast_pairs_plain(f, trif, offsets, blocks, t_init: float, sub: int):
     """Plain PyTorch version of ``raycast_pairs_kernel`` (same inputs, same
     guards, same tie rule, float32).
 
-    f (S*sub, 10) ray features; trif (NB, 10, 5*TB); offsets/blocks/walk_all
-    from ``subtile_pairs``.  Returns (t (S*sub,) float32, +inf on a miss;
-    slot (S*sub,) int32 packed block*TB + lane, -1 on a miss).
+    f (S*sub, 10) ray features; trif (NB, 10, 5*TB); the flat pair list
+    offsets (S+1,), blocks (P,): subtile s walks ``blocks[offsets[s]:
+    offsets[s+1]]``.  Returns (t (S*sub,) float32, +inf on a miss; slot
+    (S*sub,) int32 packed block*TB + lane, -1 on a miss).
     """
     dev = f.device
-    n_subtiles = walk_all.shape[0]
+    n_subtiles = offsets.shape[0] - 1
     nb, _, w = trif.shape
     tb = w // 5
     n_rays = n_subtiles * sub
@@ -296,13 +375,6 @@ def raycast_pairs_plain(f, trif, offsets, blocks, walk_all, t_init: float,
     pair_sub = torch.repeat_interleave(
         torch.arange(n_subtiles, device=dev), counts)
     pair_blk = blocks.long()
-    listed = walk_all[pair_sub] == 0  # a walk-all subtile ignores its list
-    pair_sub, pair_blk = pair_sub[listed], pair_blk[listed]
-    walkers = torch.nonzero(walk_all).flatten()
-    if walkers.numel():
-        pair_sub = torch.cat([pair_sub, walkers.repeat_interleave(nb)])
-        pair_blk = torch.cat(
-            [pair_blk, torch.arange(nb, device=dev).repeat(walkers.numel())])
 
     feats = f.view(n_subtiles, sub, N_FEAT)
     best_t = torch.full((n_rays,), float(t_init), device=dev)
@@ -336,14 +408,17 @@ def raycast_pairs_plain(f, trif, offsets, blocks, walk_all, t_init: float,
 
 
 def intersect_pairs(f, trif, offsets, blocks, walk_all, t_init: float, sub: int):
-    """The kernel for CUDA tensors, its plain version for CPU tensors."""
+    """Nearest hit of every ray over its subtile's pairs: ``blocks[offsets[s]:
+    offsets[s+1]]``, or every block where ``walk_all[s]`` is set (``walk_all``
+    may be None: no such subtile).  The kernel for CUDA tensors, its plain
+    version for CPU tensors."""
+    offsets, blocks = expand_walk_all(offsets, blocks, walk_all, trif.shape[0])
     if f.device.type == "cuda":
         from ipcgen_tpu_torch.ops import _kernels
 
-        return _kernels.raycast_pairs_cuda(f, trif, offsets, blocks, walk_all,
-                                           t_init, sub)
+        return _kernels.raycast_pairs_cuda(f, trif, offsets, blocks, t_init, sub)
     if f.device.type == "cpu":
-        return raycast_pairs_plain(f, trif, offsets, blocks, walk_all, t_init, sub)
+        return raycast_pairs_plain(f, trif, offsets, blocks, t_init, sub)
     raise ValueError(f"raycast_pairs: unsupported device {f.device}")
 
 
@@ -366,14 +441,16 @@ def ray_sort_order(origins, dirs, lo, hi):
 
 def prepare_pairs(origins, dirs, tri_data, block_lo, block_hi, *,
                   t_max: float = np.inf, sort_rays: bool = False):
-    """Everything up to the kernel: ray sort and padding, scene centering,
-    panels, prepass and subtile lists.  Tiles are 2048 rays (1024 when
-    sorted, as in ``raycast_mxu_components``), cut into 256-ray subtiles.
+    """Everything up to the pair walk: ray sort and padding, scene centering,
+    panels, and the exact prepass.  Tiles are 2048 rays (1024 when sorted,
+    as in ``raycast_mxu_components``), cut into 256-ray subtiles.
 
-    Returns a dict with the kernel's inputs (``f``, ``trif``, ``offsets``,
-    ``blocks``, ``walk_all``, ``t_init``, ``sub``), the bookkeeping
-    (``n``, ``order``, ``overflow_frac``) and the prepass sizing (``tile``,
-    ``group``, ``gmax``, ``vmax``).
+    Returns a dict with the walk's inputs (``f``, ``trif``, ``offsets``,
+    ``blocks``, ``walk_all`` = None, ``t_init``, ``sub``), the bookkeeping
+    (``n``, ``order``, ``overflow`` (T,) bool: the tiles JAX's caps would
+    overflow), the prepass inputs (``origins``, ``dirs``: the rays sorted
+    and padded) and its sizing (``tile``, ``group``, and JAX's caps
+    ``gmax``, ``vmax``).
     """
     tile = 1024 if sort_rays else 2048
     n_sub = tile // SUB_MAX
@@ -394,26 +471,28 @@ def prepare_pairs(origins, dirs, tri_data, block_lo, block_hi, *,
 
     center = (_nanmin(block_lo, 0) + _nanmax(block_hi, 0)) * 0.5
     trif = build_trif(tri_data, center)
-    # Prepass sizing as in raycast_mxu.py:1001-1030.
+    # Prepass sizing as in raycast_mxu.py:1001-1030; gmax and vmax are JAX's
+    # caps, used here only for its overflow predicate.
     group = 8 if nb <= 8192 else (16 if nb <= 32768 else 32)
     gmax = 96 if nb <= 2048 else (128 if nb <= 8192 else 192)
     vmax = min(768, nb)
     if sort_rays:
         gmax = min(-(-nb // group), 4 * gmax)
         vmax = min(1024, nb)
-    if nb >= (1 << (31 - n_sub)):
-        raise ValueError(f"block count must be < 2^{31 - n_sub}, got {nb}")
-    ids, counts, overflow, masks = candidate_blocks(
-        origins, dirs, block_lo, block_hi, t_max=t_init, vmax=vmax,
-        group=group, gmax=gmax, tile=tile, n_sub=n_sub,
-    )
-    offsets, blocks, walk_all = subtile_pairs(ids, counts, overflow, masks, n_sub)
+    offsets, blocks, groups, union = exact_prepass(
+        origins, dirs, block_lo, block_hi, t_max=t_init, group=group, tile=tile,
+        n_sub=n_sub)
     return dict(
         f=ray_features(origins - center, dirs), trif=trif, offsets=offsets,
-        blocks=blocks, walk_all=walk_all, t_init=t_init, sub=SUB_MAX, n=n,
-        order=order, overflow_frac=float(overflow.float().mean()),
-        tile=tile, group=group, gmax=gmax, vmax=vmax,
+        blocks=blocks, walk_all=None, t_init=t_init, sub=SUB_MAX, n=n,
+        order=order, overflow=(groups > gmax) | (union > vmax),
+        origins=origins, dirs=dirs, tile=tile, group=group, gmax=gmax, vmax=vmax,
     )
+
+
+def overflow_frac(p: dict) -> float:
+    """The share of tiles that JAX's caps would overflow (a host read)."""
+    return float(p["overflow"].float().mean())
 
 
 def raycast_pairs_components(origins, dirs, tri_data, block_lo, block_hi, *,
@@ -422,15 +501,15 @@ def raycast_pairs_components(origins, dirs, tri_data, block_lo, block_hi, *,
     (t (R,) +inf on miss, packed slot (R,) int32, -1 on miss).
 
     ``sort_rays="auto"`` re-runs with the coherence sort when more than 2 %
-    of the tiles overflow (incoherent ray sets, whose tiles would otherwise
-    walk every block).
+    of the tiles overflow JAX's caps (incoherent ray sets, whose unsorted
+    tiles carry long lists), as ``raycast_mxu_components`` decides.
     """
     origins = origins.float().contiguous()
     dirs = dirs.float().contiguous()
     auto_sort = sort_rays == "auto"
     p = prepare_pairs(origins, dirs, tri_data, block_lo, block_hi, t_max=t_max,
                       sort_rays=bool(sort_rays) and not auto_sort)
-    if auto_sort and p["overflow_frac"] > 0.02:
+    if auto_sort and overflow_frac(p) > 0.02:
         return raycast_pairs_components(
             origins, dirs, tri_data, block_lo, block_hi, t_max=t_max,
             sort_rays=True,

@@ -9,12 +9,18 @@ profiles, times with host timers around ``torch.cuda.synchronize`` (mean of
 ``REPS`` after one warm-up):
 
 - ``scan_waypoints`` as the sim stage calls it (``outputs="unordered"``);
-- its parts: the rays (``scan_rays``), the prepass and pair lists
-  (``prepare_pairs`` and, inside it, ``build_trif``, ``candidate_blocks``
-  and ``subtile_pairs``), the kernel over every subtile, the kernel over
-  the list subtiles only (walk-all flags cleared), and ``finalize_result``;
-- the prepass counts: subtiles, walk-all subtiles, pairs, list lengths,
-  and the ray-triangle tests the kernel runs (25 fp32 FMAs, 50 flop, each);
+- its parts: the rays (``scan_rays``), everything up to the walk
+  (``prepare_pairs``) and, inside it, ``build_trif`` and the exact prepass
+  (``exact_prepass``: count pass, CSR offsets with one host read, fill
+  pass), the walk kernel (``raycast_pairs_cuda`` on the flat pair list) and
+  ``finalize_result``;
+- from one prepass under ``torch.profiler``: the device time of its count
+  and fill passes, and the rest of the prepass (the pair-list build:
+  ``torch.cumsum`` of the list lengths, the host read that sizes the list,
+  allocation), which is the prepass time less the two passes;
+- the prepass counts: subtiles, pairs, mean and maximum list length, the
+  tiles JAX's caps would overflow, and the ray-triangle tests the walk runs
+  (25 fp32 FMAs, 50 flop, each);
 - one scan under ``torch.profiler``: device time by kernel name.
 
 Prints one JSON object (and writes it to ``--out``).  Needs a CUDA device.
@@ -66,41 +72,40 @@ def profile_profile(asset, intr, poses, device) -> dict:
     st["prepare_pairs_ms"], p = _timed(
         lambda: rp.prepare_pairs(o, d, *comps, t_max=max_range))
     tile = p["tile"]
-    n_sub = tile // p["sub"]
     if o.shape[0] % tile:
         raise ValueError(f"{o.shape[0]} rays are not whole {tile}-ray tiles")
     center = (rp._nanmin(asset.block_lo, 0) + rp._nanmax(asset.block_hi, 0)) * 0.5
     st["build_trif_ms"], _ = _timed(lambda: rp.build_trif(asset.tri_data, center))
-    st["candidate_blocks_ms"], cb = _timed(
-        lambda: rp.candidate_blocks(o, d, asset.block_lo, asset.block_hi,
-                                    t_max=p["t_init"], vmax=p["vmax"],
-                                    group=p["group"], gmax=p["gmax"],
-                                    tile=tile, n_sub=n_sub))
-    st["subtile_pairs_ms"], _ = _timed(lambda: rp.subtile_pairs(*cb, n_sub))
-    args = [p["f"], p["trif"], p["offsets"], p["blocks"], p["walk_all"],
-            p["t_init"], p["sub"]]
-    st["kernel_ms"], (t, slot) = _timed(lambda: _kernels.raycast_pairs_cuda(*args))
-    args[4] = torch.zeros_like(p["walk_all"])
-    st["kernel_list_only_ms"], _ = _timed(
-        lambda: _kernels.raycast_pairs_cuda(*args))
+
+    def prepass():
+        return rp.exact_prepass(o, d, asset.block_lo, asset.block_hi, t_max=p["t_init"],
+                                group=p["group"], tile=tile, n_sub=tile // p["sub"])
+
+    st["prepass_ms"], _ = _timed(prepass)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prepass()
+        torch.cuda.synchronize()
+    passes = {"count": 0.0, "fill": 0.0}
+    for e in prof.key_averages():
+        if "pairs_prepass_kernel" in e.key:
+            passes["fill" if "true" in e.key else "count"] += e.self_device_time_total / 1e3
+    st["prepass_count_pass_ms"] = passes["count"]
+    st["prepass_fill_pass_ms"] = passes["fill"]
+    st["pair_list_build_ms"] = st["prepass_ms"] - passes["count"] - passes["fill"]
+    args = [p["f"], p["trif"], p["offsets"], p["blocks"], p["t_init"], p["sub"]]
+    st["walk_ms"], (t, slot) = _timed(lambda: _kernels.raycast_pairs_cuda(*args))
     st["finalize_ms"], _ = _timed(lambda: finalize_result(o, d, t, slot, asset))
 
-    walk = p["walk_all"] != 0
     counts = (p["offsets"][1:] - p["offsets"][:-1]).long()
-    tests_per_block = asset.tri_data.shape[2] * p["sub"]
-    list_tests = int(counts[~walk].sum()) * tests_per_block
-    walk_tests = int(walk.sum()) * asset.num_blocks * tests_per_block
+    tests = int(p["blocks"].numel()) * asset.tri_data.shape[2] * p["sub"]
     st.update(
-        rays=int(o.shape[0]), tile=tile, group=p["group"], gmax=p["gmax"],
-        vmax=p["vmax"], subtiles=int(walk.numel()),
-        walk_all_subtiles=int(walk.sum()), overflow_frac=p["overflow_frac"],
-        pairs=int(p["blocks"].numel()),
-        mean_list_len=float(counts[~walk].float().mean()),
-        max_list_len=int(counts.max()),
-        list_tests=list_tests, walk_all_tests=walk_tests,
-        list_tests_per_s=list_tests / (st["kernel_list_only_ms"] * 1e-3),
+        rays=int(o.shape[0]), tile=tile, group=p["group"], jax_gmax=p["gmax"],
+        jax_vmax=p["vmax"], subtiles=int(counts.numel()),
+        jax_overflow_frac=rp.overflow_frac(p), pairs=int(p["blocks"].numel()),
+        mean_list_len=float(counts.float().mean()), max_list_len=int(counts.max()),
+        walk_tests=tests, walk_tests_per_s=tests / (st["walk_ms"] * 1e-3),
     )
-    st["list_tflops"] = st["list_tests_per_s"] * FLOP_PER_TEST / 1e12
+    st["walk_tflops"] = st["walk_tests_per_s"] * FLOP_PER_TEST / 1e12
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         scan_waypoints(asset, intr, poses, generator=gen(), outputs="unordered")

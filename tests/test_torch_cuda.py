@@ -5,6 +5,9 @@ This file imports no jax, so it also runs on the GPU host, which has none:
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q`` (the repository
 conftest imports jax).  Without a card its ``cuda`` tests skip.  Tolerances:
 
+- pair prepass kernel vs its plain version: offsets, blocks, group counts
+  and union sizes identical (integers from the same float32 slab
+  arithmetic);
 - pair kernel vs its plain version: same slot on >= 99.99 % of rays and t
   within 1e-5 relative (the same float32 products, summed in another FMA
   order);
@@ -137,32 +140,68 @@ def fuzz_check(device, seed):
 def test_fuzz_oblique_degenerate_kernel(cuda_device, seed):
     from ipcgen_tpu_torch.ops import _kernels
 
-    before = _kernels.LAUNCHES["raycast_pairs"]
+    before = dict(_kernels.LAUNCHES)
     fuzz_check(cuda_device, seed)
-    assert _kernels.LAUNCHES["raycast_pairs"] > before
+    for name in ("raycast_pairs", "raycast_pairs_prepass"):
+        assert _kernels.LAUNCHES[name] > before[name]
+
+
+def incoherent_rays(n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    origins = rng.uniform([0.5, 0.5, 0.3], [5.5, 4.5, 2.2], (n, 3)).astype(np.float32)
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    return origins, dirs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_size", [8, 128])
+def test_prepass_kernel_matches_plain_on_card(cuda_device, block_size):
+    """The exact prepass kernel against its plain version, bit for bit, on
+    coherent scan rays (2048-, 512- and 256-ray tiles) and sorted incoherent
+    rays (1024), at three group sizes; 8 triangles a block gives 6,144 blocks,
+    more than one of the kernel's 4,096-block chunks."""
+    from ipcgen_tpu_torch.ops import _kernels
+
+    verts, tris = synthetic_room(40_000)
+    asset = build_scene_asset(verts, tris, block_size=block_size, device=cuda_device)
+    origins, dirs = patch_ordered_scan_rays(1, r=65_536)
+    o, d = t_(origins).to(cuda_device), t_(dirs).to(cuda_device)
+    cases = [(o, d, 2048, 8), (o, d, 512, 16), (o, d, 256, 32)]
+    origins, dirs = incoherent_rays(32_768, seed=6)
+    o, d = t_(origins).to(cuda_device), t_(dirs).to(cuda_device)
+    order = pairs.ray_sort_order(o, d, pairs._nanmin(asset.block_lo, 0),
+                                 pairs._nanmax(asset.block_hi, 0))
+    cases.append((o[order].contiguous(), d[order].contiguous(), 1024, 8))
+    for o, d, tile, group in cases:
+        kw = dict(t_max=25.0, group=group, tile=tile, n_sub=tile // 256)
+        before = _kernels.LAUNCHES["raycast_pairs_prepass"]
+        got = pairs.exact_prepass(o, d, asset.block_lo, asset.block_hi, **kw)
+        assert _kernels.LAUNCHES["raycast_pairs_prepass"] == before + 1
+        want = pairs.exact_prepass_plain(o, d, asset.block_lo, asset.block_hi, **kw)
+        for name, g, w in zip(("offsets", "blocks", "groups", "union"), got, want):
+            assert g.dtype == torch.int32 and torch.equal(g, w), (name, tile, group)
+        assert got[1].numel() > 0
 
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(cuda_device):
     from ipcgen_tpu_torch.ops import _kernels
-    from ipcgen_tpu_torch.utils.synthetic import synthetic_room
 
     verts, tris = synthetic_room(40_000)
     asset = build_scene_asset(verts, tris, device=cuda_device)
-    rng = np.random.default_rng(5)
-    n = 65_536
-    origins = rng.uniform([0.5, 0.5, 0.3], [5.5, 4.5, 2.2], (n, 3)).astype(np.float32)
-    dirs = rng.normal(size=(n, 3)).astype(np.float32)
-    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    origins, dirs = incoherent_rays(65_536, seed=5)
     o, d = t_(origins).to(cuda_device), t_(dirs).to(cuda_device)
     comps = (asset.tri_data, asset.block_lo, asset.block_hi)
     cases = [pairs.prepare_pairs(o, d, *comps, t_max=25.0, sort_rays=True)]
     p = pairs.prepare_pairs(o[:4096], d[:4096], *comps, t_max=25.0)
-    p["walk_all"] = torch.ones_like(p["walk_all"])
+    # Every subtile walks every block: expand_walk_all lists them all.
+    p["offsets"], p["blocks"] = pairs.expand_walk_all(
+        p["offsets"], p["blocks"], torch.ones(p["offsets"].numel() - 1, dtype=torch.int32,
+                                              device=cuda_device), asset.num_blocks)
     cases.append(p)
     for p in cases:
-        args = (p["f"], p["trif"], p["offsets"], p["blocks"], p["walk_all"],
-                p["t_init"], p["sub"])
+        args = (p["f"], p["trif"], p["offsets"], p["blocks"], p["t_init"], p["sub"])
         before = _kernels.LAUNCHES["raycast_pairs"]
         tk, sk = _kernels.raycast_pairs_cuda(*args)
         assert _kernels.LAUNCHES["raycast_pairs"] == before + 1
@@ -181,24 +220,54 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda_device):
     f = torch.zeros((256, 10), device=cuda_device)
     trif = torch.zeros((1, 10, 640), device=cuda_device)
     i32 = dict(dtype=torch.int32, device=cuda_device)
-    good = (f, trif, torch.zeros(2, **i32), torch.zeros(0, **i32),
-            torch.zeros(1, **i32), 1e30, 256)
-    _kernels.raycast_pairs_cuda(*good)
+    good = (f, trif, torch.zeros(2, **i32), torch.zeros(0, **i32), 1e30, 256)
+    t, s = _kernels.raycast_pairs_cuda(*good)
+    assert torch.all(s == -1) and torch.all(torch.isinf(t))  # no pairs: every ray misses
     with pytest.raises(TypeError):
         _kernels.raycast_pairs_cuda(f.double(), *good[1:])
     with pytest.raises(ValueError):
         _kernels.raycast_pairs_cuda(f.cpu(), *good[1:])
     with pytest.raises(ValueError):
         _kernels.raycast_pairs_cuda(f[:, :9], *good[1:])
+    with pytest.raises(ValueError):  # one subtile of 128 rays
+        _kernels.raycast_pairs_cuda(f[:128], *good[1:5], 128)
+    with pytest.raises(TypeError):
+        _kernels.raycast_pairs_cuda(f, trif, good[2].long(), *good[3:])
+
+
+@pytest.mark.cuda
+def test_prepass_wrapper_rejects_bad_inputs(cuda_device):
+    from ipcgen_tpu_torch.ops import _kernels
+
+    f32 = dict(dtype=torch.float32, device=cuda_device)
+    o = torch.zeros((1024, 3), **f32)
+    box = torch.zeros((16, 3), **f32)
+    gbox = torch.zeros((2, 3), **f32)
+    good = (o, o, box, box, gbox, gbox, 8, 25.0, 4)
+    offsets, blocks, groups, union = _kernels.raycast_pairs_prepass_cuda(*good)
+    assert offsets.shape == (5,) and groups.shape == union.shape == (1,)
+    assert blocks.numel() == int(offsets[-1])
+    with pytest.raises(TypeError):
+        _kernels.raycast_pairs_prepass_cuda(o.double(), *good[1:])
+    with pytest.raises(ValueError):
+        _kernels.raycast_pairs_prepass_cuda(o.cpu(), *good[1:])
+    with pytest.raises(ValueError):  # not whole 1024-ray tiles
+        _kernels.raycast_pairs_prepass_cuda(o[:1000], o[:1000], *good[2:])
+    with pytest.raises(ValueError):  # 16 blocks of 8 are 2 groups, not 3
+        _kernels.raycast_pairs_prepass_cuda(*good[:4], box[:3], box[:3], *good[6:])
+    with pytest.raises(ValueError):
+        _kernels.raycast_pairs_prepass_cuda(*good[:8], 3)
+    with pytest.raises(ValueError):
+        _kernels.raycast_pairs_prepass_cuda(*good[:6], 24, *good[7:])
 
 
 def test_cpu_tensors_never_reach_the_kernel():
     """On the CPU the dispatch takes the plain version: no launch counted."""
     from ipcgen_tpu_torch.ops import _kernels
 
-    before = _kernels.LAUNCHES["raycast_pairs"]
+    before = dict(_kernels.LAUNCHES)
     fuzz_check("cpu", 1)
-    assert _kernels.LAUNCHES["raycast_pairs"] == before
+    assert _kernels.LAUNCHES == before
 
 
 def culled_cases(device):
