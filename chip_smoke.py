@@ -39,21 +39,29 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    every block.
 5. culled kernel against its plain version and the block-scan oracle, bit
    for bit in t and slot: 256 k dense-32 rays in beam order (as the culled
-   scan casts them) on the 159,744-triangle room, and the 8,192-ray
-   cluttered room of tests/test_tpu_hardware.py:31-50; both times.
+   scan casts them) on the 159,744-triangle room, the 8,192-ray cluttered
+   room of tests/test_tpu_hardware.py:31-50 and the edge-case set
+   (``utils.synthetic.culled_edge_cases``: ties across blocks, hits at
+   t_max, origins on slab planes, zero direction components, |det| at
+   1e-9, t a float step from another hit); both times.  Its counting
+   instantiation must give the same bits and run at least the per-ray
+   floor's tests (``raycast_culled.visit_floors``).
 6. the main path a third time, as a user selects the culled kernel: the
    config tree ``PipelineConfig.from_dict`` with ``simulation.backend:
    pallas`` and the BLK2GO profile, through ``S3DISSimulator`` and
    ``run_auto_simulation`` on the same room.  It must launch the culled
    kernel and not the pair kernel, give every frame points, write the
    labeled PLY and pass the label check.  The run's own rays, cast again in
-   beam order, must give back every frame exactly; 80 whole 256-ray groups
+   beam order, must give back every frame exactly; 640 whole 32-ray warps
    (20,480 rays) of them must equal the oracle bit for bit in t, tri_id,
    points and normals, and the kernel its plain version bit for bit.  Every
    frame's point count must agree with the pair kernel's BLK2GO run (same
-   seed, so the same waypoints and rays) within 1 %.  The culled kernel's
-   bound over all the run's rays counts the block visits of a torch pass
-   that culls with each ray's final t: a subset of the kernel's visits.
+   seed, so the same waypoints and rays) within 1 %.  Over all the run's
+   rays: the kernel's time, its counting instantiation (the same bits; warp
+   visits, tests, tests past each prescreen stage), and the floors of a
+   torch pass that culls with each ray's final t: each ray's own leaf
+   blocks (the per-ray floor, which sets the bound), and the visits of 32-
+   and 256-ray groups.
 7. the kernel probe (``python -m ipcgen_tpu_torch.kernel_probe``, the port
    of ``scripts/kernel_probe.py``) on the 159,744-triangle room with its
    2.56 M patch-ordered dense-32 rays: every mode of ``call``, ``grid32``
@@ -71,15 +79,18 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    inside phase 4, after the two pair runs.
 
 Every kernel's record carries its bound: the larger of the bytes it must
-move over 3.35 TB/s and the fp32 operations these rays need (exact
-candidate lists, the prepass's slab tests, or the culled kernel's block
-visits) over 67 TFLOP/s.
+move over 3.35 TB/s and the fp32 operations these rays need: the FMA
+kernels' tests of exact candidate lists over 67 TFLOP/s; the prepass's slab
+tests and the culled kernel's per-ray floor, operations that cannot fuse,
+at one fp32 issue slot each (128 per SM per clock at the maximum SM
+clock).
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Needs ``torch.cuda.is_available()``.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import shutil
 import subprocess
@@ -95,16 +106,30 @@ TRIANGLES_MAIN = 700_000  # -> 638,976 triangles
 TLS_POINTS = 600_000
 MAX_RANGE = 25.0
 # The card's peaks (NVIDIA H100 SXM data sheet): fp32 outside the tensor
-# cores, and device memory.
+# cores, an FMA counted as two operations, and device memory.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
-# fp32 operations per ray-triangle test, counted from the kernels' sources:
+# fp32 operations per ray-triangle test of the FMA kernels, at PEAK_FP32:
 # 25 FMAs (csrc/raycast_pairs.cu, csrc/raycast_probe.cu), 75 for the probe's
-# bf16 split, and Moller-Trumbore's 45 products, sums and differences plus
-# one divide (csrc/raycast_culled.cu); per slab test of the pair prepass
-# (csrc/raycast_pairs.cu slab): 6 differences, 6 products, 6 NaN checks,
-# 13 min / max and 2 compares.
-FLOPS_PER_TEST = {"pairs": 50, "bf16": 150, "culled": 46, "slab": 33}
+# bf16 split.
+FLOPS_PER_TEST = {"pairs": 50, "bf16": 150}
+# Operations that cannot fuse take one fp32 issue slot each: 128 lanes per SM
+# per clock at the card's maximum SM clock (fp32_issue_rate).  Per slab test
+# of the pair prepass (csrc/raycast_pairs.cu slab): 6 differences, 6
+# products, 6 NaN checks, 13 min / max and 2 compares.  Per culled test
+# (csrc/raycast_culled.cu mt_test, built with -fmad=false), the products,
+# sums and differences by how far the prescreen lets it go: det, 14, on
+# every test; past det, the origin offset and u's numerator, 8; past u, q
+# and v's numerator, 14; past v, t's numerator, 5; past t, the three
+# products by 1 / det and u + v, 4, and the IEEE divide: 10 SASS
+# instructions on its fast path (MUFU.RCP, FCHK, five FFMAs, the branch to
+# the slow path and its BSSY / BSYNC; `python -m
+# ipcgen_tpu_torch.culled_compare --sass DIR` writes the SASS of
+# __fdiv_rn(1.0f, x) built as the culled source is).
+FP32_LANES_PER_SM = 128
+SLAB_OPS = 33
+CULLED_STAGE_OPS = {"tests": 14, "past_det": 8, "past_u": 14, "past_v": 5, "divides": 4}
+DIVIDE_SASS = 10
 PROBE_SUBSET_TILES = 64
 PROBE_SUBSET_OVERFLOWED = 8
 
@@ -122,13 +147,44 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: int, flops: float) -> dict:
+@functools.lru_cache(maxsize=None)
+def fp32_issue_rate() -> float:
+    """Unfused fp32 operations per second: 128 lanes per SM per clock, at
+    the card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * FP32_LANES_PER_SM * mhz * 1e6
+
+
+def bound(n_bytes: int, flops: float, rate: float = PEAK_FP32) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the fp32 rate."""
-    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    the memory rate and the operations over ``rate`` (the fp32 peak, or
+    fp32_issue_rate() for operations that cannot fuse)."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flops / rate * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations",
-                bytes=int(n_bytes), flops=float(flops))
+                bytes=int(n_bytes), flops=float(flops), ops_per_s=rate)
+
+
+def culled_ops_per_test(counts: dict) -> float:
+    """Mean fp32 issue slots per culled test, from the counting kernel's
+    stage counts (CULLED_STAGE_OPS, the divide at DIVIDE_SASS)."""
+    ops = sum(n * counts[k] for k, n in CULLED_STAGE_OPS.items())
+    return (ops + DIVIDE_SASS * counts["divides"]) / max(counts["tests"], 1)
+
+
+def culled_bound(n_bytes: int, floors: dict, counts: dict) -> dict:
+    """The culled kernel's bound: the per-ray floor's tests, each at the
+    mean cost of the kernel's own tests on these rays (the same mix of
+    prescreen exits), in fp32 issue slots."""
+    res = bound(n_bytes, floors["per_ray_tests"] * culled_ops_per_test(counts),
+                fp32_issue_rate())
+    res["ops_per_test"] = culled_ops_per_test(counts)
+    return res
 
 
 def exact_list_tests(o, d, asset, t_max: float, tile: int) -> int:
@@ -248,7 +304,7 @@ def prepass_vs_plain(p: dict, asset, label: str, kernel_reps: int = 5) -> dict:
     res = dict(rays=int(o.shape[0]), tiles=n_tiles, pairs=int(got[1].numel()),
                plain_pairs=int(want[1].numel()), identical=same, ms=ms,
                plain_ms=plain_ms, slab_tests=slab_tests)
-    res.update(bound(nbytes(o, d, *boxes, *got), slab_tests * FLOPS_PER_TEST["slab"]))
+    res.update(bound(nbytes(o, d, *boxes, *got), slab_tests * SLAB_OPS, fp32_issue_rate()))
     log(f"[prepass] {label}: {json.dumps(res)}")
     require(all(same.values()), f"{label}: prepass kernel differs from its plain version")
     return res
@@ -296,14 +352,18 @@ def phase_kernel_check(device, asset) -> dict:
 def culled_vs_plain(asset, o, d, t_max: float, label: str, oracle: bool = True,
                     kernel_reps: int = 5) -> dict:
     """The culled kernel, its plain version and (``oracle``) the block-scan
-    oracle on the same rays: t and slot bit for bit, and both times."""
+    oracle on the same rays: t and slot bit for bit, and both times.  The
+    counting instantiation must give the same bits and at least the per-ray
+    floor's tests, which set the bound."""
     import torch
 
     from ipcgen_tpu_torch.ops import _kernels
     from ipcgen_tpu_torch.ops.raycast import raycast_brute_components
-    from ipcgen_tpu_torch.ops.raycast_culled import raycast_culled_plain, t_init_for
-
-    from ipcgen_tpu_torch.ops.raycast_culled import GROUP
+    from ipcgen_tpu_torch.ops.raycast_culled import (
+        raycast_culled_plain,
+        t_init_for,
+        visit_floors,
+    )
 
     o, d = o.contiguous(), d.contiguous()
     args = (o, d, asset.tri_data, asset.block_lo, asset.block_hi,
@@ -311,8 +371,9 @@ def culled_vs_plain(asset, o, d, t_max: float, label: str, oracle: bool = True,
     t_k, s_k = _kernels.raycast_culled_cuda(*args)
     stats = {}
     t_p, s_p = raycast_culled_plain(*args, stats=stats)
+    t_c, s_c, counts = _kernels.raycast_culled_count_cuda(*args)
     torch.cuda.synchronize()
-    pairs = [("plain", t_p, s_p)]
+    pairs = [("plain", t_p, s_p), ("counting kernel", t_c, s_c)]
     if oracle:
         pairs.append(("oracle", *raycast_brute_components(
             o, d, asset.tri_data, t_max, max_elems=1 << 24)))
@@ -324,16 +385,17 @@ def culled_vs_plain(asset, o, d, t_max: float, label: str, oracle: bool = True,
     res["max_abs_err"] = float((t_k - t_p).abs()[both].max()) if both.any() else 0.0
     res["ms"] = time_ms(lambda: _kernels.raycast_culled_cuda(*args), kernel_reps)
     res["plain_ms"] = time_ms(lambda: raycast_culled_plain(*args), 1)
-    # The work these rays need: the plain version's block visits, each
-    # GROUP rays x TB triangles of Moller-Trumbore.
-    res["block_visits"] = stats["block_visits"]
-    res.update(bound(nbytes(*args[:7]) + 8 * o.shape[0],
-                     stats["block_visits"] * GROUP * asset.tri_data.shape[2]
-                     * FLOPS_PER_TEST["culled"]))
+    floors = visit_floors(o, d, asset.block_lo, asset.block_hi, asset.super_lo,
+                          asset.super_hi, asset.super_factor, asset.tri_data.shape[2],
+                          torch.where(s_k >= 0, t_k, torch.full_like(t_k, args[-1])))
+    res.update(counts=counts, floors=floors, plain_block_visits=stats["block_visits"])
+    res.update(culled_bound(nbytes(*args[:7]) + 8 * o.shape[0], floors, counts))
     log(f"[culled] {label}: {res}")
     for name, _, _ in pairs:
         require(res[f"{name}_slot_mismatch"] == 0 and res[f"{name}_t_mismatch"] == 0,
                 f"{label}: culled kernel differs from the {name}: {res}")
+    require(counts["tests"] >= floors["per_ray_tests"],
+            f"{label}: the kernel ran fewer tests than the per-ray floor: {res}")
     return res
 
 
@@ -343,7 +405,7 @@ def phase_culled_kernel_check(device, asset) -> dict:
     from ipcgen_tpu_torch.models.lidar_intrinsics import Indoor8LineLidarIntrinsics
     from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
     from ipcgen_tpu_torch.sim.scan import scan_rays
-    from ipcgen_tpu_torch.utils.synthetic import hardware_scene
+    from ipcgen_tpu_torch.utils.synthetic import culled_edge_cases, hardware_scene
 
     o, d, _ = scan_rays(Indoor8LineLidarIntrinsics.create_dense_32line(),
                         room_poses(2, seed=1), None, device, backend="culled")
@@ -354,6 +416,11 @@ def phase_culled_kernel_check(device, asset) -> dict:
     out["cluttered_8k"] = culled_vs_plain(
         room, torch.from_numpy(origins).to(device), torch.from_numpy(dirs).to(device),
         20.0, "cluttered room 8k (t_max 20)")
+    verts, tris, origins, dirs, kw, t_max = culled_edge_cases()
+    edge = build_scene_asset(verts, tris, device=device, **kw)
+    out["edge_cases"] = culled_vs_plain(
+        edge, torch.from_numpy(origins).to(device), torch.from_numpy(dirs).to(device),
+        t_max, f"edge cases ({len(origins)} rays, t_max {t_max})")
     return out
 
 
@@ -754,39 +821,9 @@ def check_occupancy(asset, v, t) -> dict:
     return res
 
 
-def culled_visit_floor(o, d, asset, t_final) -> int:
-    """(group, leaf block) visits of the culled walk when every ray's best is
-    its final t from the start: each 256-ray group visits a super, then a
-    leaf block of it, when any of its rays passes the slab test before that
-    t.  The kernel's running best never falls below the final t, so it makes
-    at least these visits."""
-    import torch
-
-    from ipcgen_tpu_torch.ops.geometry import ray_aabb_hit
-    from ipcgen_tpu_torch.ops.raycast_culled import GROUP
-
-    require(o.shape[0] % GROUP == 0, "the visit floor takes whole groups")
-    ray = (o[:, 0], o[:, 1], o[:, 2], 1.0 / d[:, 0], 1.0 / d[:, 1], 1.0 / d[:, 2], t_final)
-    lane = torch.arange(GROUP, device=o.device)
-    all_groups = torch.arange(o.shape[0] // GROUP, device=o.device)
-    nb, sf = asset.num_blocks, asset.super_factor
-    visits = 0
-    for s in range(asset.super_lo.shape[0]):
-        hit = ray_aabb_hit(*ray[:6], asset.super_lo[s], asset.super_hi[s], ray[6])
-        groups = all_groups[hit.view(-1, GROUP).any(dim=1)]
-        if not groups.numel():
-            continue
-        rows = (groups[:, None] * GROUP + lane).reshape(-1)
-        sub = [x[rows] for x in ray]
-        for b in range(s * sf, min((s + 1) * sf, nb)):
-            visits += int(ray_aabb_hit(*sub[:6], asset.block_lo[b], asset.block_hi[b], sub[6])
-                          .view(-1, GROUP).any(dim=1).sum())
-    return visits
-
-
 def phase_culled_main_path(device, work: Path, card: str, mesh_path: Path,
                            data_root: Path, asset, pair_run: dict,
-                           n_groups: int = 80) -> dict:
+                           n_groups: int = 640) -> dict:
     """The BLK2GO run again, with the culled kernel selected through the
     config tree, and its checks."""
     import torch
@@ -794,7 +831,7 @@ def phase_culled_main_path(device, work: Path, card: str, mesh_path: Path,
     from ipcgen_tpu_torch.config import PipelineConfig
     from ipcgen_tpu_torch.ops import _kernels
     from ipcgen_tpu_torch.ops.raycast import raycast_asset
-    from ipcgen_tpu_torch.ops.raycast_culled import GROUP, t_init_for
+    from ipcgen_tpu_torch.ops.raycast_culled import GROUP, t_init_for, visit_floors
     from ipcgen_tpu_torch.sim.scan import scan_rays
     from ipcgen_tpu_torch.sim.simulator import S3DISSimulator
     from ipcgen_tpu_torch.utils.device import sync
@@ -827,8 +864,8 @@ def phase_culled_main_path(device, work: Path, card: str, mesh_path: Path,
     log(f"[culled-main] stage seconds on {card}: {json.dumps(stages)}; "
         f"{rate:.0f} rays/s over dispatch + scan_exec")
     require(sim.backend == "culled", f"config backend pallas gave {sim.backend}")
-    require(launches["raycast_culled"] >= 1 and launches["raycast_pairs"] == 0,
-            f"culled run launches {launches}")
+    require(launches["raycast_culled"] >= 1 and launches["raycast_pairs"] == 0
+            and launches["raycast_culled_count"] == 0, f"culled run launches {launches}")
     require(len(sc.frames) > 0 and min(n_points) > 0, "culled run: empty frame")
     ply = out_dir / "combined_pointcloud_with_label.ply"
     require(ply.is_file(), "culled run: labeled PLY missing")
@@ -874,24 +911,33 @@ def phase_culled_main_path(device, work: Path, card: str, mesh_path: Path,
                              f"culled main-path inputs ({idx.numel()} of "
                              f"{o.shape[0]} rays; plain version on this subset)",
                              oracle=False, kernel_reps=5)
-    full_ms = time_ms(lambda: _kernels.raycast_culled_cuda(
-        o, d, asset.tri_data, asset.block_lo, asset.block_hi, asset.super_lo,
-        asset.super_hi, asset.super_factor, max_range), 3)
+    # All the run's rays: the time, the counting instantiation's visits and
+    # tests against the floors, and the bound from the per-ray floor.
+    full = (o, d, asset.tri_data, asset.block_lo, asset.block_hi, asset.super_lo,
+            asset.super_hi, asset.super_factor, t_init_for(max_range))
+    full_ms = time_ms(lambda: _kernels.raycast_culled_cuda(*full), 3)
+    t_k, s_k = _kernels.raycast_culled_cuda(*full)
+    t_c, s_c, counts = _kernels.raycast_culled_count_cuda(*full)
+    require(torch.equal(t_c, t_k) and torch.equal(s_c, s_k),
+            "culled run: the counting kernel differs from the kernel")
     t0 = time.time()
-    visits = culled_visit_floor(o, d, asset, torch.where(rk.hit, rk.t, torch.full_like(
-        rk.t, t_init_for(max_range))))
-    full_bound = bound(nbytes(o, d, asset.tri_data, asset.block_lo, asset.block_hi,
-                              asset.super_lo, asset.super_hi) + 8 * o.shape[0],
-                       visits * GROUP * asset.tri_data.shape[2] * FLOPS_PER_TEST["culled"])
+    floors = visit_floors(o, d, asset.block_lo, asset.block_hi, asset.super_lo,
+                          asset.super_hi, asset.super_factor, asset.tri_data.shape[2],
+                          torch.where(s_k >= 0, t_k, torch.full_like(t_k, full[-1])))
+    full_bound = culled_bound(nbytes(*full[:7]) + 8 * o.shape[0], floors, counts)
     log(f"[culled-main] culled kernel over all {o.shape[0]} rays of the run: "
-        f"{full_ms:.3f} ms; bound {full_bound['bound_ms']:.3f} ms "
-        f"({full_bound['bound_by']}) from at least {visits} block visits (counted in "
+        f"{full_ms:.3f} ms; bound {full_bound['bound_ms']:.3f} ms ({full_bound['bound_by']}, "
+        f"{full_bound['flops']:.4e} fp32 issue slots at {full_bound['ops_per_s']:.4e} /s: the "
+        f"per-ray floor's tests at {full_bound['ops_per_test']:.2f} each); kernel counts "
+        f"{counts}; floors {floors} (counted in "
         f"{time.time() - t0:.1f} s)")
+    require(counts["tests"] >= floors["per_ray_tests"],
+            f"culled run: fewer tests than the per-ray floor: {counts} {floors}")
     return dict(launches=launches, wall_s=wall, rays=rays, frames=w, stages=stages,
                 rays_per_s=rate, label_agree=label_agree, oracle_rays=int(idx.numel()),
                 kernel=subset, full_scan_rays=int(o.shape[0]), full_scan_ms=full_ms,
-                full_scan_block_visits=visits, full_scan_bound_ms=full_bound["bound_ms"],
-                full_scan_bound_by=full_bound["bound_by"])
+                full_scan_counts=counts, full_scan_floors=floors,
+                full_scan_bound=full_bound)
 
 
 def main() -> int:
@@ -985,21 +1031,31 @@ def main() -> int:
         "launches": culled["launches"]["raycast_culled"],
         "max_abs_err": max(culled["kernel"]["max_abs_err"],
                            *(c["max_abs_err"] for c in culled_checks.values())),
-        "ms": culled["kernel"]["ms"],
+        # The main path's own call: all the culled run's rays.
+        "ms": culled["full_scan_ms"],
         "plain_ms": culled["kernel"]["plain_ms"],
-        **{k: culled["kernel"][k] for k in bound_keys}, **yardstick,
+        "plain_ms_rays": culled["kernel"]["rays"],
+        **{k: culled["full_scan_bound"][k] for k in bound_keys}, **yardstick,
+        "rays": culled["full_scan_rays"],
+        "bound_set_by": "per-ray floor tests x the kernel's mean fp32 issue slots per test "
+                        f"({culled['full_scan_bound']['ops_per_test']:.2f}, divide "
+                        f"{DIVIDE_SASS})",
+        "fp32_issue_slots_per_s": culled["full_scan_bound"]["ops_per_s"],
+        "visits": culled["full_scan_counts"]["visits"],
+        "tests": culled["full_scan_counts"]["tests"],
+        **{k: culled["full_scan_counts"][k] for k in
+           ("past_det", "past_u", "past_v", "divides")},
+        "super_visits": culled["full_scan_counts"]["super_visits"],
+        "per_ray_floor_tests": culled["full_scan_floors"]["per_ray_tests"],
+        "warp_floor_visits": culled["full_scan_floors"]["warp_visits"],
+        "group256_floor_visits": culled["full_scan_floors"]["group256_visits"],
         "main_path_inputs": {
-            "blk2go_culled": {"rays": culled["kernel"]["rays"],
-                              "ms": culled["kernel"]["ms"],
-                              "plain_ms": culled["kernel"]["plain_ms"],
-                              "full_scan_rays": culled["full_scan_rays"],
-                              "full_scan_ms": culled["full_scan_ms"],
-                              "full_scan_bound_ms": culled["full_scan_bound_ms"],
-                              "full_scan_bound_by": culled["full_scan_bound_by"],
-                              "full_scan_block_visits": culled["full_scan_block_visits"]}},
+            "blk2go_culled_subset": {k: culled["kernel"][k] for k in
+                                     ("rays", "ms", "plain_ms", "bound_ms", "counts",
+                                      "floors")}},
         "kernel_check_inputs": {
-            k: {"rays": c["rays"], "ms": c["ms"], "plain_ms": c["plain_ms"],
-                "bound_ms": c["bound_ms"]}
+            k: {key: c[key] for key in ("rays", "ms", "plain_ms", "bound_ms", "counts",
+                                        "floors")}
             for k, c in culled_checks.items()},
     }]}
     from ipcgen_tpu_torch.ops.raycast_probe import MODES, RESULT_MODES

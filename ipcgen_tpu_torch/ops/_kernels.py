@@ -53,6 +53,8 @@ KERNELS = {
                               [_C_PTR] * 12 + [_C_INT] * 4 + [_C_FLOAT, _C_INT, _C_PTR]),
     "raycast_culled": ("raycast_culled",
                        [_C_PTR] * 9 + [_C_INT] * 5 + [_C_FLOAT, _C_PTR]),
+    "raycast_culled_count": ("raycast_culled",
+                             [_C_PTR] * 10 + [_C_INT] * 5 + [_C_FLOAT, _C_PTR]),
     "raycast_probe_call": ("raycast_probe",
                            [_C_PTR] * 7 + [_C_INT] * 4 + [_C_FLOAT, _C_PTR]),
     "raycast_probe_grid": ("raycast_probe",
@@ -258,18 +260,12 @@ def raycast_pairs_cuda(f, trif, offsets, blocks, t_init: float, sub: int):
     return t, slot
 
 
-def raycast_culled_cuda(origins, dirs, tri_data, block_lo, block_hi,
-                        super_lo, super_hi, super_factor: int, t_init: float):
-    """Launch ``raycast_culled_kernel`` (csrc/raycast_culled.cu).
-
-    origins, dirs (R, 3) float32; tri_data (NB, 16, TB) float32; block_lo,
-    block_hi (NB, 3) and super_lo, super_hi (NS, 3) float32 with
-    NS * super_factor >= NB; all on one CUDA device.  Returns (t (R,)
-    float32, +inf on miss, slot (R,) int32, -1 on miss).
-    """
+def _culled_inputs(origins, dirs, tri_data, block_lo, block_hi, super_lo, super_hi,
+                   super_factor: int, caller: str):
+    """Check the culled kernel's inputs; returns (R, NB, NS, TB)."""
     device = origins.device
     if device.type != "cuda":
-        raise ValueError(f"raycast_culled_cuda: origins is on {device}, not CUDA")
+        raise ValueError(f"{caller}: origins is on {device}, not CUDA")
     for x, name, ndim in ((origins, "origins", 2), (dirs, "dirs", 2),
                           (tri_data, "tri_data", 3), (block_lo, "block_lo", 2),
                           (block_hi, "block_hi", 2), (super_lo, "super_lo", 2),
@@ -289,16 +285,58 @@ def raycast_culled_cuda(origins, dirs, tri_data, block_lo, block_hi,
         raise ValueError(f"super_lo/super_hi: expected ({ns}, 3)")
     if super_factor <= 0 or ns * super_factor < nb:
         raise ValueError(f"{ns} supers of {super_factor} do not cover {nb} blocks")
-    t = torch.empty(n, dtype=torch.float32, device=device)
-    slot = torch.empty(n, dtype=torch.int32, device=device)
+    return n, nb, ns, tb
+
+
+def raycast_culled_cuda(origins, dirs, tri_data, block_lo, block_hi,
+                        super_lo, super_hi, super_factor: int, t_init: float):
+    """Launch ``raycast_culled_kernel`` (csrc/raycast_culled.cu).
+
+    origins, dirs (R, 3) float32; tri_data (NB, 16, TB) float32; block_lo,
+    block_hi (NB, 3) and super_lo, super_hi (NS, 3) float32 with
+    NS * super_factor >= NB; all on one CUDA device.  Returns (t (R,)
+    float32, +inf on miss, slot (R,) int32, -1 on miss).
+    """
+    boxes = (tri_data, block_lo, block_hi, super_lo, super_hi)
+    n, nb, ns, tb = _culled_inputs(origins, dirs, *boxes, super_factor, "raycast_culled_cuda")
+    t = torch.empty(n, dtype=torch.float32, device=origins.device)
+    slot = torch.empty(n, dtype=torch.int32, device=origins.device)
     if n == 0:
         return t, slot
-    _launch("raycast_culled", device,
-            origins.data_ptr(), dirs.data_ptr(), tri_data.data_ptr(),
-            block_lo.data_ptr(), block_hi.data_ptr(), super_lo.data_ptr(),
-            super_hi.data_ptr(), t.data_ptr(), slot.data_ptr(), n, nb, ns,
+    _launch("raycast_culled", origins.device, origins.data_ptr(), dirs.data_ptr(),
+            *(x.data_ptr() for x in boxes), t.data_ptr(), slot.data_ptr(), n, nb, ns,
             int(super_factor), tb, float(t_init))
     return t, slot
+
+
+# The counting instantiation's counts: warp visits of leaf blocks, tests of
+# their active lanes, tests past the prescreen's determinant, u, v and t
+# stages (the last are the divides), warp visits of supers.
+CULLED_COUNTS = ("visits", "tests", "past_det", "past_u", "past_v", "divides",
+                 "super_visits")
+
+
+def raycast_culled_count_cuda(origins, dirs, tri_data, block_lo, block_hi,
+                              super_lo, super_hi, super_factor: int, t_init: float):
+    """Launch the counting instantiation of ``raycast_culled_kernel``: the
+    same inputs and (t, slot) as ``raycast_culled_cuda``, plus a dict of
+    ``CULLED_COUNTS``: the warp visits of leaf blocks, the ray-triangle
+    tests of the active lanes in them, the tests that pass each stage of the
+    prescreen (the last stage's divide) and the warp visits of super blocks.
+    Counted under
+    ``LAUNCHES["raycast_culled_count"]``; the main path never calls it."""
+    boxes = (tri_data, block_lo, block_hi, super_lo, super_hi)
+    n, nb, ns, tb = _culled_inputs(origins, dirs, *boxes, super_factor,
+                                   "raycast_culled_count_cuda")
+    device = origins.device
+    t = torch.empty(n, dtype=torch.float32, device=device)
+    slot = torch.empty(n, dtype=torch.int32, device=device)
+    counts = torch.zeros(len(CULLED_COUNTS), dtype=torch.int64, device=device)
+    if n:
+        _launch("raycast_culled_count", device, origins.data_ptr(), dirs.data_ptr(),
+                *(x.data_ptr() for x in boxes), t.data_ptr(), slot.data_ptr(),
+                counts.data_ptr(), n, nb, ns, int(super_factor), tb, float(t_init))
+    return t, slot, dict(zip(CULLED_COUNTS, counts.tolist()))
 
 
 def _probe_common(f, trif, n_tiles: int, device: torch.device, bf16: bool = False):

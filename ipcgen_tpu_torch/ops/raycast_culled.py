@@ -10,18 +10,20 @@ kernel in ``csrc/raycast_culled.cu``, launched through ``ops/_kernels.py``;
 
 How a ray is intersected
 ------------------------
-Rays are taken in groups of ``GROUP`` consecutive rays (one CUDA block).
-Each group walks the super blocks in ascending order and visits one when any
-of its rays passes the slab test against its running best t; inside a
-visited super it does the same for each leaf block, and for a visited leaf
-block it runs Moller-Trumbore against the block's TB triangles.  The running
-best starts at t_init (``t_max`` when finite, else float32 max), so geometry
-beyond the range cap or behind the first hit is culled at the AABB level,
-and a hit must be strictly nearer than the best: a hit at exactly ``t_max``
-is dropped, and ties go to the smallest packed slot.  The result equals the
-block-scan oracle (``ops/raycast.py`` ``raycast_block_scan``) bit for bit:
-the same component-form arithmetic, and a block is skipped only when no ray
-of the group can enter its eps-padded AABB before its current best.
+The result of each ray is the lexicographic minimum (t, packed slot) over
+the triangles it hits with 1e-6 < t, from a start of (t_init, -1): t_init
+is ``t_max`` when finite, else float32 max, so a hit at exactly ``t_max`` is
+dropped and ties go to the smallest slot.  Geometry beyond the range cap or
+behind a hit found earlier is culled at the AABB level.  The kernel takes
+rays in warps of ``GROUP`` = 32 and walks the super blocks and their leaf
+blocks nearest first; the plain version below takes the same groups and
+walks the blocks in ascending order.  Both skip a block only when no ray of
+the group can enter its eps-padded AABB by its current best, so both equal
+the block-scan oracle (``ops/raycast.py`` ``raycast_block_scan``) bit for
+bit: the same component-form arithmetic, whatever the visiting order.
+
+``mt_prescreen_plain`` is the kernel's prescreen in torch ops (which tests
+reach 1 / det), and ``visit_floors`` counts the least work these rays need.
 """
 
 from __future__ import annotations
@@ -29,11 +31,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ipcgen_tpu_torch.ops.geometry import moller_trumbore_components, ray_aabb_hit
+from ipcgen_tpu_torch.ops.geometry import MT_EPS, moller_trumbore_components, ray_aabb_hit
 from ipcgen_tpu_torch.ops.raycast import RaycastResult, finalize_result
 from ipcgen_tpu_torch.ops.scene_asset import SceneAsset
 
-GROUP = 256  # rays per group: kGroup, the threads of one CUDA block
+GROUP = 32  # rays per group: kGroup, the lanes of one warp of the kernel
+# The prescreen's slack on the running best (kSlack in csrc/raycast_culled.cu):
+# 1 + 16 unit roundoffs, exact in float32.
+SLACK = 1.0 + 2.0 ** -20
+# fl(BARY_EPS * SLACK) in float32 (kBaryK): the barycentric stages' margin.
+BARY_K = float(np.float32(np.float32(1e-7) * np.float32(SLACK)))
 
 
 def t_init_for(t_max: float) -> float:
@@ -109,6 +116,81 @@ def raycast_culled_plain(origins, dirs, tri_data, block_lo, block_hi,
         stats["block_visits"] = visits
     t_out = torch.where(best_i >= 0, best_t, torch.full_like(best_t, float("inf")))
     return t_out[:n], best_i[:n]
+
+
+def mt_prescreen_plain(ox, oy, oz, dx, dy, dz,
+                       v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, best):
+    """The kernel's prescreen (``mt_test`` in csrc/raycast_culled.cu) in
+    torch ops: True where a ray-triangle test survives to its divide.
+
+    With det and the numerators of u, v and t in the association of
+    ``moller_trumbore_components``, it rejects when ``|det| <= 1e-9``, when
+    u's or v's numerator is of the opposite sign to det and larger than
+    ``|det| * fl(1e-7 * SLACK)``, when t's numerator is zero or of the
+    opposite sign, or when it is larger than ``|det| * fl(best * SLACK)``;
+    the kernel's comment proves that each rejected test fails exact
+    Moller-Trumbore or has t > ``best``.  Every input broadcasts; float32.
+    """
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    un = tx * px + ty * py + tz * pz
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    vn = dx * qx + dy * qy + dz * qz
+    num = e2x * qx + e2y * qy + e2z * qz
+    ad = torch.abs(det)
+    flip = torch.signbit(det)
+    su, sv, sn = (torch.where(flip, -x, x) for x in (un, vn, num))
+    bary_thr = ad * BARY_K
+    thr = ad * (best * SLACK)
+    return ((ad > MT_EPS) & ~(-su > bary_thr) & ~(-sv > bary_thr) & (sn > 0)
+            & ~(sn > thr))
+
+
+def visit_floors(origins, dirs, block_lo, block_hi, super_lo, super_hi,
+                 super_factor: int, tb: int, t_final) -> dict:
+    """The least work of the culled walk for these rays: with each ray's
+    best equal to its final t from the start (``t_final``: its t, or t_init
+    on a miss), the leaf blocks whose AABB it enters before that t.
+
+    - ``per_ray_tests``: those blocks summed over the rays, times TB; no
+      grouping of rays can run fewer ray-triangle tests;
+    - ``warp_visits``: (32-ray warp, leaf block) pairs among them, the
+      kernel's groups;
+    - ``group256_visits``: the same for groups of 256 consecutive rays.
+
+    A ray that enters a leaf block enters its super, so each super's leaf
+    blocks are tested on the rays that enter the super only.
+    """
+    dev = origins.device
+    nb = block_lo.shape[0]
+    ray = (origins[:, 0], origins[:, 1], origins[:, 2],
+           1.0 / dirs[:, 0], 1.0 / dirs[:, 1], 1.0 / dirs[:, 2], t_final)
+    per_ray = torch.zeros((), dtype=torch.int64, device=dev)
+    warps = torch.zeros_like(per_ray)
+    groups = torch.zeros_like(per_ray)
+
+    def distinct(q):  # q ascending
+        return (q[1:] != q[:-1]).sum() + (q.numel() > 0)
+
+    for s in range(super_lo.shape[0]):
+        rows = ray_aabb_hit(*ray[:6], super_lo[s], super_hi[s], ray[6]).nonzero().flatten()
+        if not rows.numel():
+            continue
+        sub = [x[rows] for x in ray]
+        for b in range(s * super_factor, min((s + 1) * super_factor, nb)):
+            hit = rows[ray_aabb_hit(*sub[:6], block_lo[b], block_hi[b], sub[6])]
+            per_ray += hit.numel()
+            warps += distinct(hit // 32)
+            groups += distinct(hit // 256)
+    return dict(per_ray_tests=int(per_ray) * tb, warp_visits=int(warps),
+                group256_visits=int(groups))
 
 
 def raycast_culled_components(origins, dirs, tri_data, block_lo, block_hi,

@@ -118,29 +118,17 @@ def profile_profile(asset, intr, poses, device) -> dict:
     return st
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", type=Path, default=None)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_scan needs a CUDA device")
-
+def main_room(device):
+    """The main room of ``chip_smoke.py`` and its auto trajectory as the
+    simulator plans it (20 requested waypoints, seed 0): (triangle count,
+    asset on ``device``, pose batch)."""
     from ipcgen_tpu_torch.containers.mesh import TriMesh
     from ipcgen_tpu_torch.containers.scene import RoomBounds
-    from ipcgen_tpu_torch.models.lidar_intrinsics import (
-        DualAxisLidarIntrinsics,
-        Indoor8LineLidarIntrinsics,
-    )
-    from ipcgen_tpu_torch.ops import _kernels
     from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
     from ipcgen_tpu_torch.trajectory import AutoTrajectoryGenerator
     from ipcgen_tpu_torch.trajectory.waypoint import waypoints_to_pose_batch
-    from ipcgen_tpu_torch.utils.device import card_line
     from ipcgen_tpu_torch.utils.synthetic import synthetic_room
 
-    device = torch.device("cuda", 0)
-    card = card_line()
-    _kernels.build()
     v, t = synthetic_room(700_000)
     mesh = TriMesh(vertices=v, triangles=t)
     asset = build_scene_asset(v, t, device=device)
@@ -148,9 +136,29 @@ def main(argv=None) -> int:
         robot_radius=0.15, seed=0, occupancy_mode="vertices",
     ).generate_optimal_trajectory(
         mesh=mesh, room_bounds=RoomBounds.from_mesh(mesh).to_dict(), num_waypoints=20)
-    poses = waypoints_to_pose_batch(waypoints)
-    out = {"card": card, "triangles": int(len(t)), "blocks": asset.num_blocks,
-           "waypoints": len(waypoints)}
+    return len(t), asset, waypoints_to_pose_batch(waypoints)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_scan needs a CUDA device")
+
+    from ipcgen_tpu_torch.models.lidar_intrinsics import (
+        DualAxisLidarIntrinsics,
+        Indoor8LineLidarIntrinsics,
+    )
+    from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.utils.device import card_line
+
+    device = torch.device("cuda", 0)
+    card = card_line()
+    _kernels.build()
+    n_tris, asset, poses = main_room(device)
+    out = {"card": card, "triangles": n_tris, "blocks": asset.num_blocks,
+           "waypoints": int(poses.shape[0])}
     for name, intr in (("blk2go", DualAxisLidarIntrinsics.create_blk2go_dual_axis()),
                        ("dense32", Indoor8LineLidarIntrinsics.create_dense_32line())):
         out[name] = profile_profile(asset, intr, poses, device)

@@ -205,3 +205,95 @@ def patch_ordered_scan_rays(num_waypoints: int = 20, r: int = 128_000,
         np.stack([xs, np.full(num_waypoints, 2.5), np.full(num_waypoints, 1.0)],
                  axis=1), r, axis=0).astype(np.float32)
     return origins, np.tile(dirs, (num_waypoints, 1))
+
+
+EDGE_T_MAX = 6.0
+EDGE_KW = dict(block_size=2, super_factor=2)
+
+
+def _tri(v0, e1, e2):
+    v0 = np.asarray(v0, np.float32)
+    return np.stack([v0, v0 + np.float32(e1), v0 + np.float32(e2)])
+
+
+def culled_edge_cases(seed: int = 0):
+    """The ray set that the culled kernel's walk and prescreen could get
+    wrong: (vertices, triangles, origins, dirs, asset kwargs, t_max).
+
+    Leaf blocks of 2 triangles and supers of 2 blocks (``EDGE_KW``), t_max
+    ``EDGE_T_MAX``.  It holds:
+
+    - ties: 12 random triangles, each 5 times, so the copies span leaf
+      blocks and supers; rays from all around aim at them, so for some the
+      super with the smaller slot is entered later;
+    - hits at exactly t_max (t = 6, dropped) and one float below it;
+    - origins on a leaf block's slab plane, with a zero and a non-zero
+      direction component across it;
+    - axis-aligned directions (zero components) throughout;
+    - |det| within 3 float32 steps of 1e-9 either way (a thin triangle
+      whose det is exactly its width);
+    - t within a float32 step or two of another hit: parallel triangles
+      stacked 1 to 3 float steps apart, axis-aligned (exact) and tilted.
+    """
+    from ipcgen_tpu_torch.ops.scene_asset import build_scene_arrays
+
+    rng = np.random.default_rng(seed)
+    tris = []
+    base = rng.uniform([0.5, 0.5, 1.0], [3.5, 3.5, 3.0], (12, 3)).astype(np.float32)
+    e1 = rng.normal(0, 0.25, (12, 3)).astype(np.float32)
+    e2 = rng.normal(0, 0.25, (12, 3)).astype(np.float32)
+    dup_centers = []
+    for b, a, c in zip(base, e1, e2):
+        tris += [_tri(b, a, c)] * 5
+        dup_centers.append(b + (a + c) / np.float32(3))
+    # t exactly t_max at (10.5, 0.5) and one float32 step nearer at (12.5, 0.5).
+    near = np.nextafter(np.float32(EDGE_T_MAX), np.float32(0))
+    tris.append(_tri([10, 0, EDGE_T_MAX], [2, 0, 0], [0, 2, 0]))
+    tris.append(_tri([12, 0, near], [2, 0, 0], [0, 2, 0]))
+    # |det| = width exactly for rays along +z: widths 1e-9 -+ 3 steps.
+    widths = [np.float32(1e-9)]
+    for _ in range(3):
+        widths = [np.nextafter(widths[0], np.float32(0))] + widths
+        widths = widths + [np.nextafter(widths[-1], np.float32(1))]
+    for k, w in enumerate(widths):
+        tris.append(_tri([0, 20 + 2 * k, 1 + 0.25 * k], [w, 0, 0], [0, 1, 0]))
+    # Parallel triangles 0-3 float32 steps above z = 3.
+    zs = [np.float32(3.0)]
+    for _ in range(3):
+        zs.append(np.nextafter(zs[-1], np.float32(4)))
+    for z in zs[::-1]:  # the nearest last: it gets the largest slot
+        tris.append(_tri([30, 0, z], [1, 0, 0], [0, 1, 0]))
+    verts = np.concatenate(tris).astype(np.float32)
+    faces = np.arange(len(verts), dtype=np.int32).reshape(-1, 3)
+
+    origins, dirs = [], []
+
+    def add(o, d):
+        d = np.asarray(d, np.float64)
+        origins.append(np.asarray(o, np.float32))
+        dirs.append((d / np.linalg.norm(d)).astype(np.float32))
+
+    for c in dup_centers:  # ties, from 24 directions each
+        for _ in range(24):
+            u = rng.normal(size=3)
+            u /= np.linalg.norm(u)
+            add(c + 3.0 * u, -u)
+    for k, w in enumerate(widths):  # thin triangles, hit at u = 0.25
+        add([w / np.float32(4), 20.25 + 2 * k, 0], [0, 0, 1])
+    for x in (10.5, 12.5):  # t = t_max and one step below
+        add([x, 0.5, 0], [0, 0, 1])
+        add([x, 0.5, 0], [0.01, 0.02, 1])
+    for tilt in ([0, 0, 1], [0.01, 0.02, 1], [-0.003, 0.001, 1]):  # stacked
+        for y in (0.1, 0.3, 0.45):
+            add([30.4, y, 0], tilt)
+    arrays = build_scene_arrays(verts, faces, **EDGE_KW)
+    lo = arrays["block_lo"]
+    for b in np.flatnonzero(np.isfinite(lo[:, 0]))[:12]:  # on a slab plane
+        c = (lo[b] + arrays["block_hi"][b]) / 2
+        for d in ([0, 0, 1], [0, 1, 0], [0, 0.6, 0.8], [1, 0, 0]):
+            add([lo[b, 0], c[1], c[2] - 2.0 * d[2]], d)
+    for d in ([1, 0, 0], [0, 1, 0], [0, 0, 1], [0, 0, -1], [-1, 0, 0]):  # axis-aligned
+        for o in rng.uniform([0.0, 0.0, 0.0], [4.0, 4.0, 4.0], (8, 3)):
+            add(o, d)
+    return (verts, faces, np.stack(origins), np.stack(dirs), dict(EDGE_KW),
+            EDGE_T_MAX)

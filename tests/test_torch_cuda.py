@@ -16,7 +16,9 @@ conftest imports jax).  Without a card its ``cuda`` tests skip.  Tolerances:
   same triangle >= 99 %, hit-point error p99 <= 5 mm and max <= 5 cm);
 - culled kernel vs its plain version and vs the oracle: bit for bit (the
   hardware contract of tests/test_tpu_hardware.py:57-70): every product and
-  sum is rounded on its own in all three;
+  sum is rounded on its own in all three; its counting instantiation gives
+  the same bits and counts at least the per-ray floor
+  (``raycast_culled.visit_floors``);
 - probe kernels vs their plain versions (``ops/raycast_probe.py``): the
   result modes, grid and flat the same slot on >= 99.99 % of rays and t
   within 1e-5 relative (the same products summed in another order); the
@@ -37,6 +39,7 @@ from ipcgen_tpu_torch.ops.raycast import raycast_asset  # noqa: E402
 from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset  # noqa: E402
 from ipcgen_tpu_torch.utils.synthetic import (  # noqa: E402
     cluttered_room,
+    culled_edge_cases,
     hardware_scene,
     patch_ordered_scan_rays,
     synthetic_room,
@@ -280,6 +283,9 @@ def culled_cases(device):
                               device=device)
     cases += [(f"t_max {t}", asset, origins, dirs, t)
               for t in (2.0, float(np.nextafter(np.float32(2), np.float32(3))))]
+    verts, tris, origins, dirs, kw, t_max = culled_edge_cases()
+    cases.append(("edge cases", build_scene_asset(verts, tris, device=device, **kw),
+                  origins, dirs, t_max))
     return cases
 
 
@@ -311,6 +317,34 @@ def test_culled_kernel_bit_exact_on_card(cuda_device):
             assert rk.tri_id[0].item() == asset.tri_index[0].item()
         else:
             assert 0.5 < rk.hit.float().mean().item() < 1.0
+
+
+@pytest.mark.cuda
+def test_culled_counting_kernel_on_card(cuda_device):
+    """The counting instantiation gives the normal kernel's t and slot bit
+    for bit and counts at least the per-ray floor's tests and the warp
+    floor's visits; it is counted apart from the main kernel."""
+    from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.ops.raycast_culled import t_init_for, visit_floors
+
+    for label, asset, origins, dirs, t_max in culled_cases(cuda_device):
+        o, d = t_(origins).to(cuda_device), t_(dirs).to(cuda_device)
+        args = (o, d, asset.tri_data, asset.block_lo, asset.block_hi,
+                asset.super_lo, asset.super_hi, asset.super_factor, t_init_for(t_max))
+        before = dict(_kernels.LAUNCHES)
+        tk, sk = _kernels.raycast_culled_cuda(*args)
+        tc, sc, counts = _kernels.raycast_culled_count_cuda(*args)
+        assert _kernels.LAUNCHES["raycast_culled"] == before["raycast_culled"] + 1
+        assert _kernels.LAUNCHES["raycast_culled_count"] == before["raycast_culled_count"] + 1
+        assert torch.equal(tk, tc) and torch.equal(sk, sc), label
+        tb = asset.tri_data.shape[2]
+        t_final = torch.where(sk >= 0, tk, torch.full_like(tk, t_init_for(t_max)))
+        floors = visit_floors(o, d, asset.block_lo, asset.block_hi, asset.super_lo,
+                              asset.super_hi, asset.super_factor, tb, t_final)
+        assert counts["tests"] >= floors["per_ray_tests"], (label, counts, floors)
+        assert counts["visits"] >= floors["warp_visits"], (label, counts, floors)
+        assert counts["tests"] <= 32 * tb * counts["visits"]
+        assert counts["divides"] <= counts["tests"]
 
 
 @pytest.mark.cuda

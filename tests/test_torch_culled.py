@@ -18,11 +18,17 @@ card.  Tolerances:
   the plane of the triangle it hits, that rounding is amplified by the hit's
   condition number |e1| |e2| / |det|: there the bound is one float32 unit
   roundoff times that number (the soup has one such ray, at about 0.3
-  degrees to the plane: condition 200, the two t differ by 5.4e-6).
+  degrees to the plane: condition 200, the two t differ by 5.4e-6);
+- the kernel's prescreen (its torch copy ``mt_prescreen_plain``): no test
+  that exact Moller-Trumbore accepts at t <= best may be rejected, on seeded
+  fuzz and a hypothesis property; the visit floors: ordered as their group
+  sizes require.
 """
 
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)  # six pytest-xdist workers share the CPU cores
@@ -33,11 +39,12 @@ from ipcgen_tpu.ops.raycast_pallas import raycast_pallas_components  # noqa: E40
 from ipcgen_tpu.ops.scene_asset import build_scene_asset as jax_build  # noqa: E402
 from ipcgen_tpu_torch.ops import _kernels  # noqa: E402
 from ipcgen_tpu_torch.ops import raycast_culled as culled  # noqa: E402
+from ipcgen_tpu_torch.ops.geometry import moller_trumbore_components  # noqa: E402
 from ipcgen_tpu_torch.ops.raycast import raycast_asset  # noqa: E402
 from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset  # noqa: E402
 from ipcgen_tpu_torch.sim import simulator as port_sim  # noqa: E402
 
-from ipcgen_tpu_torch.utils.synthetic import hardware_scene  # noqa: E402
+from ipcgen_tpu_torch.utils.synthetic import culled_edge_cases, hardware_scene  # noqa: E402
 from test_torch_cuda import same_result, t_, t_max_scene  # noqa: E402
 
 
@@ -270,3 +277,224 @@ def test_yaml_pallas_config_reaches_the_culled_path(tmp_path, monkeypatch):
     rays = sim.lidar_config.get_total_points_per_scan()
     assert seen == [2 * rays]
     assert batch.mask.all()  # a closed box: every ray hits
+
+
+# ---------------------------------------------------------------------------
+# The edge-case set, the prescreen and the visit floors
+# ---------------------------------------------------------------------------
+def all_slot_t(o, d, tri_data, t_max):
+    """Moller-Trumbore of every ray against every packed slot, hits at or
+    beyond t_max dropped: (R, NB * TB)."""
+    comp = tri_data[:, :9, :].permute(1, 0, 2).reshape(9, -1)
+    t = moller_trumbore_components(*(o[:, i, None] for i in range(3)),
+                                   *(d[:, i, None] for i in range(3)),
+                                   *(comp[k][None, :] for k in range(9)))
+    return torch.where(t < t_max, t, torch.full_like(t, float("inf")))
+
+
+def super_entry(o, d, lo, hi):
+    """float64 entry distance of each ray into one box (inf on a miss)."""
+    o, d = np.asarray(o, np.float64), np.asarray(d, np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t1, t2 = (lo - o) / d, (hi - o) / d
+    tmin = np.nanmax(np.minimum(t1, t2), axis=-1)
+    tmax = np.nanmin(np.maximum(t1, t2), axis=-1)
+    return np.where(tmax >= np.maximum(tmin, 0), np.maximum(tmin, 0), np.inf)
+
+
+@pytest.fixture(scope="module")
+def edge():
+    verts, tris, origins, dirs, kw, t_max = culled_edge_cases()
+    asset = build_scene_asset(verts, tris, device="cpu", **kw)
+    o, d = t_(origins), t_(dirs)
+    return dict(verts=verts, tris=tris, origins=origins, dirs=dirs, kw=kw, t_max=t_max,
+                asset=asset, o=o, d=d,
+                culled=raycast_asset(o, d, asset, backend="culled", t_max=t_max),
+                brute=raycast_asset(o, d, asset, backend="brute", t_max=t_max))
+
+
+def test_edge_cases_plain_matches_oracle_and_jax(edge):
+    """The plain version at the kernel's group equals the oracle bit for bit
+    and JAX's xla_brute (hit masks and triangles identical, t within the
+    module's condition-scaled bound: the tie rays cross their triangles at
+    all angles) on the edge-case set."""
+    same_result(edge["culled"], edge["brute"])
+    ja = jax_build(edge["verts"], edge["tris"], **edge["kw"])
+    ref = jax_raycast.raycast_asset(edge["origins"], edge["dirs"], ja, backend="xla_brute",
+                                    t_max=edge["t_max"])
+    res = edge["culled"]
+    np.testing.assert_array_equal(res.tri_id.numpy(), np.asarray(ref.tri_id))
+    asset = edge["asset"]
+    t, slot = culled.raycast_culled_components(
+        edge["o"], edge["d"], asset.tri_data, asset.block_lo, asset.block_hi,
+        asset.super_lo, asset.super_hi, super_factor=asset.super_factor,
+        t_max=edge["t_max"])
+    t_ref = np.where(np.asarray(ref.hit), np.asarray(ref.t), np.inf)
+    assert_like_jax(t_ref, slot, t, slot, asset.tri_data, edge["dirs"])
+
+
+def test_edge_cases_hold_what_they_promise(edge):
+    """Ties across blocks (some with the smaller slot in the super entered
+    later), t_max hits, |det| at 1e-9 and stacked hits are all in the set,
+    and each came out as the tie rule and the guards say."""
+    asset, o, d, res = edge["asset"], edge["o"], edge["d"], edge["culled"]
+    tb = asset.tri_data.shape[2]
+    sf = asset.super_factor
+    t_all = all_slot_t(o, d, asset.tri_data, edge["t_max"])
+    t_min = t_all.min(dim=1).values
+    tied = (t_all == t_min[:, None]) & torch.isfinite(t_min)[:, None]
+    later = 0
+    for r in torch.nonzero(tied.sum(1) > 1).flatten().tolist():
+        slots = torch.nonzero(tied[r]).flatten()
+        assert res.hit[r] and slots.min().item() // tb < slots.max().item() // tb
+        # The winner is the smallest tied slot (its original id).
+        assert res.tri_id[r].item() == asset.tri_index[slots.min()].item()
+        supers = slots // (tb * sf)
+        entry = super_entry(edge["origins"][r], edge["dirs"][r],
+                            asset.super_lo[supers].numpy(), asset.super_hi[supers].numpy())
+        later += bool(entry[0] > entry.min())
+    assert later > 0
+    n_dup = 12 * 24
+    # Rays along +z: t = t_max is dropped, one step below is kept.
+    t_rays = n_dup + 7
+    assert not res.hit[t_rays] and res.hit[t_rays + 2]
+    assert res.t[t_rays + 2].item() == float(np.nextafter(np.float32(6), np.float32(0)))
+    # Thin triangles: a hit exactly when the width (= |det|) exceeds 1e-9f.
+    widths = [edge["verts"][3 * i + 1, 0] for i in range(62, 69)]
+    assert res.hit[n_dup:n_dup + 7].tolist() == [w > np.float32(1e-9) for w in widths]
+    # Stacked triangles: the nearest, at exactly z = 3 on the +z rays.
+    stacked = n_dup + 11
+    assert res.t[stacked:stacked + 3].tolist() == [3.0] * 3
+    assert res.hit[stacked:stacked + 9].all()
+
+
+def prescreen_cases(n: int, seed: int):
+    """Seeded ray-triangle pairs (15 float32 (n,) components) and a best for
+    each.  Rays aim at a point near the triangle (barycentrics in
+    [-0.05, 1.05]) from 1 mm to 20 m away; edges of 1 m, 1 cm or 0.1 mm.
+    Quarters: as drawn; e1 scaled so |det| is within 0.1 % of 1e-9; best
+    0 to 4 float32 steps either side of the pair's own t; the origin 0.1 to
+    10 um before the plane, so t_num is near zero and t near t_min."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(f)
+    v0 = rng.normal(size=(n, 3)).astype(f)
+    scale = rng.choice([1.0, 1e-2, 1e-4], size=(n, 1))
+    e1 = (rng.normal(size=(n, 3)) * scale).astype(f)
+    e2 = (rng.normal(size=(n, 3)) * scale).astype(f)
+    q = n // 4
+    det = np.einsum("ij,ij->i", e1.astype(np.float64),
+                    np.cross(d.astype(np.float64), e2.astype(np.float64)))
+    e1[:q] *= (1e-9 * rng.uniform(0.999, 1.001, (q, 1))
+               / np.maximum(np.abs(det[:q, None]), 1e-30)).astype(f)
+    u, v = rng.uniform(-0.05, 1.05, (2, n, 1))
+    target = v0 + u * e1 + v * e2
+    t0 = rng.uniform(1e-3, 20.0, (n, 1))
+    t0[3 * q:] = rng.uniform(1e-7, 1e-5, (n - 3 * q, 1))
+    o = (target - t0 * d).astype(f)
+    comps = [torch.from_numpy(np.ascontiguousarray(a[:, i]))
+             for a in (o, d, v0, e1, e2) for i in range(3)]
+    t = moller_trumbore_components(*comps)
+    best = torch.from_numpy(rng.uniform(0.5, 30.0, n).astype(f))
+    near = torch.where(torch.isfinite(t), t, best)
+    steps = torch.from_numpy(rng.integers(-4, 5, n))
+    toward = torch.where(steps > 0, torch.full_like(near, np.inf), torch.zeros_like(near))
+    for k in range(4):
+        near = torch.where(steps.abs() > k, torch.nextafter(near, toward), near)
+    part = (torch.arange(n) >= 2 * q) & (torch.arange(n) < 3 * q)
+    # Clearly outside: 1 % of an edge on 1 m triangles (the origin's rounding
+    # moves u and v by about 1e-6 there), |det| not shrunk to 1e-9.
+    outside = torch.from_numpy(((u < -0.01) | (v < -0.01))[:, 0] & (scale[:, 0] == 1.0))
+    outside[:q] = False
+    return comps, torch.where(part, near, best), outside
+
+
+def check_prescreen(comps, best):
+    t = moller_trumbore_components(*comps)
+    accepted = torch.isfinite(t) & (t <= best)
+    keep = culled.mt_prescreen_plain(*comps, best)
+    missed = accepted & ~keep
+    assert not missed.any(), (int(missed.sum()), torch.nonzero(missed)[:5].flatten())
+    return accepted, keep
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_prescreen_never_rejects_an_accepted_hit(seed):
+    """128 k seeded pairs with near-threshold cases: every test that exact
+    Moller-Trumbore accepts at t <= best survives the prescreen, and no hit
+    beyond best by 1e-5 relative, nor a ray clearly outside, does."""
+    comps, best, outside = prescreen_cases(1 << 17, seed)
+    accepted, keep = check_prescreen(comps, best)
+    assert accepted.sum() > 10_000
+    # Not vacuous: a hit beyond best by 1e-5 relative, and a ray aimed 1 %
+    # of an edge outside the triangle, never reach the divide.
+    t = moller_trumbore_components(*comps)
+    far = torch.isfinite(t) & (t > best * (1 + 1e-5))
+    assert far.sum() > 1000 and not keep[far].any()
+    assert outside.sum() > 1000 and not keep[outside].any()
+
+
+def test_prescreen_on_exact_best_ties():
+    """best equal to the pair's own t (a tie) and one float step either
+    side: the prescreen keeps the test whenever t <= best."""
+    comps, _, _ = prescreen_cases(1 << 14, 2)
+    t = moller_trumbore_components(*comps)
+    hit = torch.isfinite(t)
+    for best in (t, torch.nextafter(t, torch.full_like(t, np.inf)),
+                 torch.nextafter(t, torch.zeros_like(t))):
+        b = torch.where(hit, best, torch.ones_like(t))
+        check_prescreen(comps, b)
+
+
+f32s = st.floats(-8.0, 8.0, width=32, allow_subnormal=False)
+
+
+@settings(max_examples=400, deadline=None, derandomize=True)
+@given(st.lists(f32s, min_size=12, max_size=12), st.floats(-0.1, 1.1), st.floats(-0.1, 1.1),
+       st.floats(1e-7, 100.0), st.sampled_from([1.0, 1e-3, 1e-5]), st.integers(-3, 3),
+       st.floats(float(np.float32(1e-5)), float(np.float32(3e38)), width=32))
+def test_prescreen_property(vals, a, b, t0, scale, steps, best):
+    """Any float32 triangle (edges scaled towards tiny det) and a ray aimed
+    near it from t0 away, with best either free or the pair's own t moved by
+    ``steps`` float steps: exact Moller-Trumbore accepting at t <= best
+    implies survival."""
+    x = np.asarray(vals, np.float32)
+    v0, e1, e2, d = x[0:3], x[3:6] * np.float32(scale), x[6:9] * np.float32(scale), x[9:12]
+    if np.linalg.norm(d) == 0:
+        d = np.float32([0, 0, 1])
+    d = (d / np.linalg.norm(d)).astype(np.float32)
+    o = (v0 + a * e1 + b * e2 - t0 * d).astype(np.float32)
+    comps = [torch.tensor([c], dtype=torch.float32)
+             for c in (*o, *d, *v0, *e1, *e2)]
+    t = moller_trumbore_components(*comps)
+    if steps and torch.isfinite(t).all():
+        toward = torch.full_like(t, np.inf if steps > 0 else 0.0)
+        for _ in range(abs(steps)):
+            t = torch.nextafter(t, toward)
+        best = float(t)
+    check_prescreen(comps, torch.tensor([best], dtype=torch.float32))
+
+
+def test_visit_floors_order(case):
+    """The floors against each other and the plain version's visits: a ray's
+    own blocks <= 32 x the warp floor's visits; warp visits between the
+    256-group visits and 8 x those; the plain version (groups of 32, no final
+    t known) visits at least the warp floor."""
+    verts, tris, origins, dirs, kw, t_max = CASES[case["name"]]()
+    asset = build_scene_asset(verts, tris, device="cpu", **kw)
+    o, d = t_(origins), t_(dirs)
+    t, _ = case["slots"]
+    t_final = torch.where(torch.isfinite(t), t, torch.full_like(t, culled.t_init_for(t_max)))
+    tb = asset.tri_data.shape[2]
+    f = culled.visit_floors(o, d, asset.block_lo, asset.block_hi, asset.super_lo,
+                            asset.super_hi, asset.super_factor, tb, t_final)
+    stats = {}
+    culled.raycast_culled_plain(o, d, asset.tri_data, asset.block_lo, asset.block_hi,
+                                asset.super_lo, asset.super_hi, asset.super_factor,
+                                culled.t_init_for(t_max), stats=stats)
+    assert f["per_ray_tests"] <= 32 * tb * f["warp_visits"]
+    assert f["group256_visits"] <= f["warp_visits"] <= 8 * f["group256_visits"]
+    assert f["warp_visits"] <= stats["block_visits"]
+    if case["name"] != "box_t1":
+        assert f["per_ray_tests"] > 0
