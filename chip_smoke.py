@@ -13,8 +13,12 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    coherent scan rays, 256 k incoherent rays (ray-sorted, as raycast_asset's
    "auto" does for them) and, for the pair kernel, a set whose every subtile
    walks all blocks.  The prepass's offsets, blocks, group counts and union
-   sizes must be identical; the pair kernel must give the same slot on
-   >= 99.99 % of rays and t within 1e-5 relative.  Both times each;
+   sizes must be identical, and its counting launch must give them too, with
+   the stage counts of the plain three-level model (megas, groups of hit
+   megas, blocks of hit groups; the last equal to what the plain lists
+   imply), at least the tests of its per-ray floor; the pair kernel must
+   give the same slot on >= 99.99 % of rays and
+   t within 1e-5 relative.  Both times each;
 4. the main path at real scale: a 638,976-triangle room and a 600 k-point
    S3DIS-format TLS room written from the same surfaces, then
    ``run_single_scene_simulation`` with the BLK2GO profile and again with
@@ -80,10 +84,14 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the fp32 operations these rays need: the FMA
-kernels' tests of exact candidate lists over 67 TFLOP/s; the prepass's slab
-tests and the culled kernel's per-ray floor, operations that cannot fuse,
-at one fp32 issue slot each (128 per SM per clock at the maximum SM
-clock).
+kernels' tests of exact candidate lists over 67 TFLOP/s; the per-ray floors
+of the prepass's slab tests (``prepass_floors``) and of the culled kernel's
+tests, operations that cannot fuse, at one fp32 issue slot each (128 per SM
+per clock at the maximum SM clock).  The prepass's row also carries
+``bound_tile_ms``, the same slab tests when a tile's rays descend together
+as the kernel's do, and ``bound_two_level_ms``, the two-level kernel's count
+(every ray against every group, then the blocks of hit groups, at 33 slots
+a test).
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Needs ``torch.cuda.is_available()``.
 """
@@ -115,10 +123,12 @@ PEAK_BYTES = 3.35e12
 FLOPS_PER_TEST = {"pairs": 50, "bf16": 150}
 # Operations that cannot fuse take one fp32 issue slot each: 128 lanes per SM
 # per clock at the card's maximum SM clock (fp32_issue_rate).  Per slab test
-# of the pair prepass (csrc/raycast_pairs.cu slab): 6 differences, 6
-# products, 6 NaN checks, 13 min / max and 2 compares.  Per culled test
-# (csrc/raycast_culled.cu mt_test, built with -fmad=false), the products,
-# sums and differences by how far the prescreen lets it go: det, 14, on
+# of the pair prepass (csrc/raycast_pairs.cu slab_fast): 6 differences, 6
+# products, 6 min / max per axis, 3 + 3 for the entry and exit chains and one
+# compare, 25; the two-level kernel's form took 33 (6 NaN checks and 2 clamps
+# more), which the two-level bound keeps so the two designs compare.  Per
+# culled test (csrc/raycast_culled.cu mt_test, built with -fmad=false), the
+# products, sums and differences by how far the prescreen lets it go: det, 14, on
 # every test; past det, the origin offset and u's numerator, 8; past u, q
 # and v's numerator, 14; past v, t's numerator, 5; past t, the three
 # products by 1 / det and u + v, 4, and the IEEE divide: 10 SASS
@@ -127,7 +137,8 @@ FLOPS_PER_TEST = {"pairs": 50, "bf16": 150}
 # ipcgen_tpu_torch.culled_compare --sass DIR` writes the SASS of
 # __fdiv_rn(1.0f, x) built as the culled source is).
 FP32_LANES_PER_SM = 128
-SLAB_OPS = 33
+SLAB_OPS = 25
+SLAB_OPS_TWO_LEVEL = 33
 CULLED_STAGE_OPS = {"tests": 14, "past_det": 8, "past_u": 14, "past_v": 5, "divides": 4}
 DIVIDE_SASS = 10
 PROBE_SUBSET_TILES = 64
@@ -271,11 +282,25 @@ def kernel_vs_plain(p: dict, label: str, kernel_reps: int = 5,
 def prepass_vs_plain(p: dict, asset, label: str, kernel_reps: int = 5) -> dict:
     """The prepass kernel and its plain version on the rays ``prepare_pairs``
     gave it: offsets, blocks, group counts and union sizes identical, both
-    times, and the bound of the slab tests these rays need."""
+    times.  The counting launch must give the same outputs and the stage
+    counts of the plain three-level model (``prepass_model``), and its
+    stage-2 tests must equal those the plain lists imply (the blocks of each
+    tile's groups).  The bound: the per-ray floor's slab tests
+    (``prepass_floors``: every mega, the groups of the megas each ray enters,
+    the blocks of the groups it enters) at SLAB_OPS.  Beside it, the same
+    count for the kernel's own sets of a tile's rays (``bound_tile_ms``) and
+    the two-level count (every ray against every group, then the blocks of
+    hit groups) at SLAB_OPS_TWO_LEVEL, the earlier two-level kernel's bound
+    (``bound_two_level_ms``)."""
     import torch
 
     from ipcgen_tpu_torch.ops import _kernels
-    from ipcgen_tpu_torch.ops.raycast_pairs import exact_prepass_plain, group_boxes
+    from ipcgen_tpu_torch.ops.raycast_pairs import (
+        exact_prepass_plain,
+        group_boxes,
+        prepass_floors,
+        prepass_model,
+    )
 
     tile = p["tile"]
     kw = dict(t_max=p["t_init"], group=p["group"], tile=tile, n_sub=tile // p["sub"])
@@ -289,24 +314,45 @@ def prepass_vs_plain(p: dict, asset, label: str, kernel_reps: int = 5) -> dict:
 
     got = kernel()
     want = exact_prepass_plain(o, d, asset.block_lo, asset.block_hi, **kw)
+    counted = _kernels.raycast_pairs_prepass_count_cuda(o, d, *boxes, p["group"],
+                                                        p["t_init"], kw["n_sub"])
+    model = prepass_model(o, d, asset.block_lo, asset.block_hi, **kw)[4]
+    floors = prepass_floors(o, d, asset.block_lo, asset.block_hi, t_max=p["t_init"],
+                            group=p["group"], tile=tile)
     torch.cuda.synchronize()
     same = {name: bool(torch.equal(g, w))
             for name, g, w in zip(("offsets", "blocks", "groups", "union"), got, want)}
+    same["counting_launch"] = all(torch.equal(g, w) for g, w in zip(counted[:4], want))
+    stage = counted[4]
     ms = time_ms(kernel, kernel_reps)
     plain_ms = time_ms(lambda: exact_prepass_plain(o, d, asset.block_lo, asset.block_hi,
                                                    **kw), 1)
     n_tiles = o.shape[0] // tile
     ng = boxes[2].shape[0]
     require(asset.num_blocks % p["group"] == 0, "the bound counts whole groups")
-    # Stage 1: every ray against every group; stage 2: against each block of
-    # the groups its tile crosses.
-    slab_tests = n_tiles * ng * tile + int(got[2].sum()) * p["group"] * tile
+    implied_block_tests = int(want[2].sum()) * p["group"] * tile
+    slab_tests = stage["mega_tests"] + stage["group_tests"] + stage["block_tests"]
+    two_level = n_tiles * ng * tile + implied_block_tests
+    n_bytes = nbytes(o, d, *boxes, *got)
     res = dict(rays=int(o.shape[0]), tiles=n_tiles, pairs=int(got[1].numel()),
                plain_pairs=int(want[1].numel()), identical=same, ms=ms,
-               plain_ms=plain_ms, slab_tests=slab_tests)
-    res.update(bound(nbytes(o, d, *boxes, *got), slab_tests * SLAB_OPS, fp32_issue_rate()))
+               plain_ms=plain_ms, slab_tests=slab_tests, stage_tests=stage,
+               floor_tests=floors, two_level_slab_tests=two_level)
+    res.update(bound(n_bytes, floors["per_ray_tests"] * SLAB_OPS, fp32_issue_rate()))
+    res["bound_tile_ms"] = bound(n_bytes, slab_tests * SLAB_OPS,
+                                 fp32_issue_rate())["bound_ms"]
+    res["bound_two_level_ms"] = bound(n_bytes, two_level * SLAB_OPS_TWO_LEVEL,
+                                      fp32_issue_rate())["bound_ms"]
     log(f"[prepass] {label}: {json.dumps(res)}")
     require(all(same.values()), f"{label}: prepass kernel differs from its plain version")
+    require(stage == model, f"{label}: the kernel's stage counts {stage} differ from the "
+                            f"plain three-level model's {model}")
+    require(stage["block_tests"] == implied_block_tests,
+            f"{label}: stage-2 tests {stage['block_tests']} differ from the "
+            f"{implied_block_tests} the plain lists imply")
+    require(slab_tests >= floors["tile_tests"] >= floors["subtile_tests"]
+            >= floors["warp32_tests"] >= floors["per_ray_tests"] > 0,
+            f"{label}: the kernel's tests {slab_tests} and the floors {floors} are out of order")
     return res
 
 
@@ -1016,12 +1062,24 @@ def main() -> int:
         "ms": prepass["ms"],
         "plain_ms": prepass["plain_ms"],
         **{k: prepass[k] for k in bound_keys}, **yardstick,
+        "bound_set_by": "per-ray floor slab tests (prepass_floors: every mega, the groups "
+                        "of the megas each ray enters, the blocks of the groups it enters) "
+                        f"x {SLAB_OPS} fp32 issue slots a test (slab_fast)",
+        "fp32_issue_slots_per_s": prepass["ops_per_s"],
+        "bound_tile_ms": prepass["bound_tile_ms"],
+        "bound_two_level_ms": prepass["bound_two_level_ms"],
+        "floor_tests": prepass["floor_tests"],
+        "stage_tests": prepass["stage_tests"],
         "main_path_inputs": {
             k: {key: r["prepass"][key] for key in
-                ("rays", "ms", "plain_ms", "bound_ms", "bound_by", "slab_tests", "pairs")}
+                ("rays", "ms", "plain_ms", "bound_ms", "bound_by", "bound_tile_ms",
+                 "bound_two_level_ms", "slab_tests", "stage_tests", "floor_tests",
+                 "two_level_slab_tests", "pairs")}
             for k, r in runs.items()},
         "kernel_check_inputs": {
-            k: {key: c[key] for key in ("rays", "ms", "plain_ms", "bound_ms", "pairs")}
+            k: {key: c[key] for key in ("rays", "ms", "plain_ms", "bound_ms", "bound_tile_ms",
+                                        "bound_two_level_ms", "stage_tests", "floor_tests",
+                                        "pairs")}
             for k, c in prepass_checks.items()},
     }, {
         "name": "raycast_culled_kernel",

@@ -1,8 +1,8 @@
 // Candidate-pair ray/triangle intersection for Hopper (sm_90a): the exact
 // pair prepass and the pair walk.
 //
-// pairs_prepass_kernel replaces the candidate prepass of
-// ipcgen_tpu/ops/raycast_mxu.py, candidate_blocks (:297-401).  That is XLA
+// pairs_prepass_kernel and pairs_prepass_fill_kernel replace the candidate
+// prepass of ipcgen_tpu/ops/raycast_mxu.py, candidate_blocks (:297-401).  That is XLA
 // code, not a Pallas kernel; its plain PyTorch version here is
 // subtile_pairs(candidate_blocks(...)) with no cap on groups or blocks
 // (exact_prepass_plain in ipcgen_tpu_torch/ops/raycast_pairs.py).
@@ -18,33 +18,95 @@
 //
 // The prepass
 // -----------
-// One CUDA block of kPreThreads = 256 threads per tile of n_sub subtiles of
-// 256 rays; thread t holds ray t of every subtile (n_sub rays).  Leaf blocks
-// are taken kChunkBlocks at a time.  Stage 1 slab-tests every ray against the
-// chunk's block groups (AABB unions of `group` consecutive blocks) and marks a
-// group in a shared bit set when any ray of the tile enters it (__any_sync,
-// then one shared atomicOr per warp).  Stage 2 slab-tests the rays against the
-// blocks of the marked groups only, OR-reduces each thread's n_sub subtile
-// bits over the warp (__reduce_or_sync) and merges them into a shared byte per
-// block.  Then the chunk's blocks are compacted in ascending order: warp
-// ballots give each block's rank in each subtile's list.  The kernel runs
-// twice: the count pass writes each subtile's list length, the tile's group
-// count, the size of its block union and its stage-1 group bits (one bit per
-// tile and group, in device memory); the caller turns the lengths into CSR
-// offsets (torch.cumsum, one host read of the total); the fill pass reads the
-// group bits, repeats stage 2 and writes each list at its offset.
+// Three levels of boxes: leaf blocks; groups, the NaN-aware AABB unions of
+// `group` consecutive blocks (the caller's group_lo / group_hi); and mega
+// boxes, the NaN-aware unions of kMega = 8 consecutive groups, which the
+// kernel builds in shared memory from the group table (per axis the least
+// and the greatest non-NaN lo or hi coordinate of its groups: the union of
+// the boxes as point sets; NaN where all are NaN).
+//
+// The count pass, pairs_prepass_kernel: one CUDA block of kPreThreads = 256
+// threads per tile of n_sub subtiles of 256 rays; thread t holds ray t of
+// every subtile (n_sub rays).  Groups are taken a chunk at a time
+// (kChunkGroups, and at most kChunkBlocks blocks: the whole main room of
+// 6,144 blocks is one chunk).  The chunk's group table is loaded into shared
+// memory once and the megas built from it.  Stage 0 tests every ray against
+// the megas; stage 1 the groups of the megas that some ray of the tile
+// enters; stage 2 the blocks of the groups that some ray enters, whose boxes
+// are staged in shared memory kStage at a time.  A box is marked when any ray
+// of the tile enters it (__any_sync, or __reduce_or_sync of each thread's
+// n_sub subtile bits, then one shared atomicOr per warp).  Stage 2 leaves one
+// byte of subtile bits per block; the chunk's bytes go to the tile's row of
+// a scratch buffer in device memory (T x NB bytes, rows padded to 16), and
+// their popcounts give each subtile's list length and the tile's union.  The
+// caller turns the lengths into CSR offsets (torch.cumsum, one host read of
+// the total).  The fill pass, pairs_prepass_fill_kernel, runs no slab test: each
+// thread takes a run of its tile's row, counts each subtile's bits in it, a
+// block-wide scan gives its place in each list, and it writes the blocks in
+// ascending order.
+//
 // The slab test is candidate_blocks' _tile_slab_or: d_safe = +-1e-12 for
 // |d| < 1e-12, inv = 1 / d_safe, (lo - o) * inv rounded once each, entry and
 // exit clamped to -+3e38, hit when exit >= max(entry, 0) and entry < t_max.
-// torch.minimum / maximum propagate NaN, so a NaN-padded box fails there;
-// fminf / fmaxf would drop the NaN, so a NaN slab distance fails here
-// explicitly (as slab_hit in raycast_culled.cu).
-// What bounds it on the card: about 33 fp32 operations per slab test (6
-// differences, 6 products, 6 NaN checks, 13 min / max, 2 compares), ray-tile
-// x group tests in stage 1 and ray x block tests of the hit groups in stage 2;
-// device memory moves only the rays, the boxes and the lists.  It is bound by
-// fp32 instruction throughput, and by the second pass, which repeats stage 2
-// to place the lists without a per-tile buffer of NB entries.
+// torch.minimum / maximum propagate NaN, so any NaN slab distance is a miss.
+// Two forms, which give the same answer:
+//  - checked (slab_checked): the rounding above with an explicit NaN check
+//    of the six distances (fminf / fmaxf would drop a NaN that torch
+//    propagates).  It runs on a tile that holds a non-finite ray component,
+//    and on every tile when t_max is not in (0, 3e38].  Such a tile tests
+//    every group (no mega level).
+//  - fast (slab_fast): the other tiles.  A box with a NaN coordinate is
+//    never entered (its distances are NaN for every ray), so it is flagged
+//    once when its table is built and skipped.  For the rest no distance is
+//    NaN: d finite gives |inv| in [2.9e-39, 1e12], never 0 or inf, and a
+//    finite o and lo give a finite or infinite lo - o, so (lo - o) * inv is
+//    never 0 * inf.  Then fminf / fmaxf equal torch's minimum / maximum, and
+//    with t_prev the largest float below t_max:
+//        exit >= max(entry, 0) and entry < t_max
+//    <=> max(0, mins) <= min(t_prev, maxes).
+//    (max(entry, 0) = max(0, mins) as entry's -3e38 clamp is below 0;
+//    entry < t_max <=> max(0, mins) < t_max as t_max > 0; and once
+//    max(0, mins) < t_max <= 3e38, exit's 3e38 clamp cannot decide.)  That is
+//    6 differences, 6 products, 6 min / max per axis, 3 + 3 for the entry and
+//    exit chains and one compare: 25 issue slots where the checked form takes
+//    33 (its 6 NaN checks and 2 clamps).
+//
+// Why the lists stay exact: for a finite ray, no level prunes a box that the
+// ray enters.  With o finite and inv finite and non-zero (safe_inv of a
+// finite d), the map x -> fl(fl(x - o) * inv) is monotone in x (rounding to
+// nearest is monotone, and so is the product by a fixed inv: non-decreasing
+// for inv > 0, non-increasing for inv < 0) and never NaN for a non-NaN x,
+// so on each axis the interval of slab distances of a box lies inside that
+// of any box whose coordinate range contains the first one's lo and hi.  A
+// union box built as above contains the lo and hi of each member with no
+// NaN coordinate, and has no NaN coordinate itself when such a member
+// exists.  So for a finite ray that enters a member (no NaN distance, which
+// needs a member with no NaN coordinate), on every axis the union's min
+// distance is <= the member's and its max distance >= the member's; hence
+// entry_union <= entry_member and exit_union >= exit_member, and
+// exit_union >= exit_member >= max(entry_member, 0) >= max(entry_union, 0),
+// entry_union <= entry_member < t_max: the ray enters the union.  So on a
+// tile of finite rays a group that some ray enters lies in a mega that some
+// ray enters, the `groups` count is exact, and each subtile's list equals
+// the plain version's.  The mega's hull of lo and hi (rather than min lo,
+// max hi) keeps this true for a box given with lo > hi on an axis.
+// For a non-finite ray the argument can fail: an infinite direction gives
+// inv = 0, and a union with an infinite coordinate then gives
+// (inf - o) * 0 = NaN, a miss, while a finite member gives entry = exit = 0,
+// a hit.  So a checked tile skips the mega level.  Its group level matches
+// the plain version whatever the ray, because the kernel tests the plain
+// version's own groups (the caller's group_lo / group_hi) with its own
+// arithmetic.
+//
+// What bounds it on the card: fp32 issue slots.  The least work these lists
+// need is each ray's own descent: every mega, the groups of the megas the
+// ray enters and the blocks of the groups it enters (prepass_floors in
+// ops/raycast_pairs.py), at 25 slots a test.  The kernel descends a tile at
+// a time: every ray of the tile tests the groups of the megas any of its
+// rays enters, and the blocks of the groups any of them enters.  Device
+// memory moves the rays, the boxes, the T x NB byte buffer and the lists,
+// tens of MB.  The test is comparisons and min / max with no product to
+// accumulate, so tensor cores and wgmma do not apply.
 //
 // The pair walk
 // -------------
@@ -96,7 +158,11 @@ constexpr int kRays = kSub / kWalkThreads;  // rays per walk thread
 constexpr int kChunk = 8;          // pairs per walk block
 constexpr int kPreThreads = 256;   // threads per prepass block
 constexpr int kPreWarps = kPreThreads / 32;
-constexpr int kChunkBlocks = 4096; // leaf blocks per prepass chunk
+constexpr int kMega = 8;             // groups per mega box (MEGA in raycast_pairs.py)
+constexpr int kChunkGroups = 1024;   // most groups per prepass chunk
+constexpr int kChunkMegas = kChunkGroups / kMega;
+constexpr int kChunkBlocks = 8192;   // most leaf blocks per prepass chunk
+constexpr int kStage = 512;          // block boxes staged in shared memory at once
 constexpr float kBig = 3.0e38f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
@@ -112,15 +178,15 @@ __device__ __forceinline__ float safe_inv(float d) {
   return __fdiv_rn(1.0f, ds);
 }
 
-// Does the ray enter the box (lo, hi) within [0, t_max)?  (_tile_slab_or)
-__device__ __forceinline__ bool slab(const SlabRay& r, const float* lo,
-                                     const float* hi, float t_max) {
-  const float t1x = __fmul_rn(__fsub_rn(__ldg(lo + 0), r.ox), r.ix);
-  const float t2x = __fmul_rn(__fsub_rn(__ldg(hi + 0), r.ox), r.ix);
-  const float t1y = __fmul_rn(__fsub_rn(__ldg(lo + 1), r.oy), r.iy);
-  const float t2y = __fmul_rn(__fsub_rn(__ldg(hi + 1), r.oy), r.iy);
-  const float t1z = __fmul_rn(__fsub_rn(__ldg(lo + 2), r.oz), r.iz);
-  const float t2z = __fmul_rn(__fsub_rn(__ldg(hi + 2), r.oz), r.iz);
+// Does the ray enter the box b = (lo xyz, hi xyz) within [0, t_max)?
+// (_tile_slab_or, with an explicit NaN check: any ray, any t_max.)
+__device__ __forceinline__ bool slab_checked(const SlabRay& r, const float* b, float t_max) {
+  const float t1x = __fmul_rn(__fsub_rn(b[0], r.ox), r.ix);
+  const float t2x = __fmul_rn(__fsub_rn(b[3], r.ox), r.ix);
+  const float t1y = __fmul_rn(__fsub_rn(b[1], r.oy), r.iy);
+  const float t2y = __fmul_rn(__fsub_rn(b[4], r.oy), r.iy);
+  const float t1z = __fmul_rn(__fsub_rn(b[2], r.oz), r.iz);
+  const float t2z = __fmul_rn(__fsub_rn(b[5], r.oz), r.iz);
   if (isnan(t1x) || isnan(t2x) || isnan(t1y) || isnan(t2y) || isnan(t1z) ||
       isnan(t2z)) {
     return false;
@@ -132,7 +198,62 @@ __device__ __forceinline__ bool slab(const SlabRay& r, const float* lo,
   return exit >= fmaxf(entry, 0.0f) && entry < t_max;
 }
 
-template <int NSUB, bool kFill>
+// The same answer for a finite ray, a box with no NaN coordinate and
+// 0 < t_max <= 3e38, with t_prev the largest float below t_max (header).
+__device__ __forceinline__ bool slab_fast(const SlabRay& r, const float* b, float t_prev) {
+  const float t1x = __fmul_rn(__fsub_rn(b[0], r.ox), r.ix);
+  const float t2x = __fmul_rn(__fsub_rn(b[3], r.ox), r.ix);
+  const float t1y = __fmul_rn(__fsub_rn(b[1], r.oy), r.iy);
+  const float t2y = __fmul_rn(__fsub_rn(b[4], r.oy), r.iy);
+  const float t1z = __fmul_rn(__fsub_rn(b[2], r.oz), r.iz);
+  const float t2z = __fmul_rn(__fsub_rn(b[5], r.oz), r.iz);
+  const float entry = fmaxf(fmaxf(fmaxf(0.0f, fminf(t1x, t2x)), fminf(t1y, t2y)),
+                            fminf(t1z, t2z));
+  const float exit = fminf(fminf(fminf(t_prev, fmaxf(t1x, t2x)), fmaxf(t1y, t2y)),
+                           fmaxf(t1z, t2z));
+  return entry <= exit;
+}
+
+template <int NSUB>
+__device__ __forceinline__ unsigned subtile_bits(const SlabRay (&ray)[NSUB], const float* b,
+                                                 bool checked, float t_max, float t_prev) {
+  unsigned bits = 0u;
+  if (checked) {
+#pragma unroll
+    for (int s = 0; s < NSUB; ++s) bits |= (unsigned)slab_checked(ray[s], b, t_max) << s;
+  } else {
+#pragma unroll
+    for (int s = 0; s < NSUB; ++s) bits |= (unsigned)slab_fast(ray[s], b, t_prev) << s;
+  }
+  return bits;
+}
+
+__device__ __forceinline__ bool box_has_nan(const float* b) {
+  return isnan(b[0]) || isnan(b[1]) || isnan(b[2]) || isnan(b[3]) || isnan(b[4]) ||
+         isnan(b[5]);
+}
+
+// Shared memory of the count pass (dynamic: about 54 KB).
+struct PrepassSmem {
+  float gbox[kChunkGroups * 6];       // the chunk's groups: lo xyz, hi xyz
+  float mbox[kChunkMegas * 6];        // its megas
+  float sbox[kStage * 6];             // staged block boxes
+  int sid[kStage];                    // their chunk-local ids; -1: NaN or past NB
+  int glist[kChunkGroups];            // the hit groups, ascending
+  unsigned masks[kChunkBlocks / 4];   // one byte of subtile bits per block
+  unsigned gvalid[kChunkGroups / 32]; // groups with no NaN coordinate
+  unsigned gbits[kChunkGroups / 32];  // groups some ray enters
+  unsigned mvalid[kChunkMegas / 32];
+  unsigned mbits[kChunkMegas / 32];
+  int totals[9];                      // NSUB list lengths, then the union
+  int n_hit;
+};
+
+// Count pass: each subtile's list length, the tile's group count and union
+// size, and its row of subtile bytes in `rows`; with `stage_counts` (the
+// counting launch) also the boxes considered at each level times the tile's
+// rays, and the checked tiles.
+template <int NSUB>
 __global__ void __launch_bounds__(kPreThreads)
 pairs_prepass_kernel(const float* __restrict__ origins,   // (T * NSUB * 256, 3)
                      const float* __restrict__ dirs,      // (T * NSUB * 256, 3)
@@ -140,147 +261,295 @@ pairs_prepass_kernel(const float* __restrict__ origins,   // (T * NSUB * 256, 3)
                      const float* __restrict__ block_hi,  // (NB, 3)
                      const float* __restrict__ group_lo,  // (NG, 3)
                      const float* __restrict__ group_hi,  // (NG, 3)
-                     int* __restrict__ sub_counts,        // (T * NSUB), count pass
-                     int* __restrict__ tile_groups,       // (T), count pass
-                     int* __restrict__ tile_union,        // (T), count pass
-                     unsigned* __restrict__ tile_gbits,   // (T * ceil(NG / 32))
-                     const int* __restrict__ offsets,     // (T * NSUB + 1), fill pass
-                     int* __restrict__ blocks,            // (P), fill pass
-                     int nb, int group, float t_max) {
-  __shared__ unsigned masks[kChunkBlocks / 4];  // one byte of subtile bits per block
-  __shared__ unsigned gbits[kChunkBlocks / 32];  // one bit per group
-  __shared__ int warp_cnt[NSUB + 1][kPreWarps];
-  __shared__ int run[NSUB + 1];  // list lengths so far; [NSUB]: the union
+                     int* __restrict__ sub_counts,        // (T * NSUB)
+                     int* __restrict__ tile_groups,       // (T)
+                     int* __restrict__ tile_union,        // (T)
+                     unsigned* __restrict__ rows,         // (T, row_words)
+                     unsigned long long* __restrict__ stage_counts,  // (4) or null
+                     int nb, int group, int row_words, float t_max, float t_prev,
+                     int fast_t) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  PrepassSmem& sm = *reinterpret_cast<PrepassSmem*>(smem_raw);
   const int tile = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned lt_mask = (1u << lane) - 1u;
+  const int lane = threadIdx.x & 31;
 
   SlabRay ray[NSUB];
+  bool finite = true;
 #pragma unroll
   for (int s = 0; s < NSUB; ++s) {
     const size_t r = ((size_t)tile * NSUB + s) * kSub + threadIdx.x;
-    ray[s] = SlabRay{origins[3 * r], origins[3 * r + 1], origins[3 * r + 2],
-                     safe_inv(dirs[3 * r]), safe_inv(dirs[3 * r + 1]),
-                     safe_inv(dirs[3 * r + 2])};
+    const float ox = origins[3 * r], oy = origins[3 * r + 1], oz = origins[3 * r + 2];
+    const float dx = dirs[3 * r], dy = dirs[3 * r + 1], dz = dirs[3 * r + 2];
+    finite &= isfinite(ox) && isfinite(oy) && isfinite(oz) && isfinite(dx) &&
+              isfinite(dy) && isfinite(dz);
+    ray[s] = SlabRay{ox, oy, oz, safe_inv(dx), safe_inv(dy), safe_inv(dz)};
   }
-  if (threadIdx.x <= NSUB) run[threadIdx.x] = 0;
-  int groups_hit = 0;  // thread 0's count
-  int my_offset[NSUB];
-  if (kFill) {
-#pragma unroll
-    for (int s = 0; s < NSUB; ++s) my_offset[s] = offsets[tile * NSUB + s];
-  }
+  if (threadIdx.x <= NSUB) sm.totals[threadIdx.x] = 0;
+  // A tile with a non-finite ray component takes the checked form.
+  const bool checked = __syncthreads_or(!finite) || !fast_t;
 
-  const int chunk_groups = kChunkBlocks / group;  // a multiple of 32
+  int cnt[NSUB + 1];  // this thread's share of the list lengths and the union
+#pragma unroll
+  for (int s = 0; s <= NSUB; ++s) cnt[s] = 0;
+  int groups_hit = 0;                                    // thread 0's count
+  unsigned long long n_mega = 0, n_group = 0, n_block = 0;  // thread 0's counts
   const int ng = (nb + group - 1) / group;
-  unsigned* my_gbits = tile_gbits + (size_t)tile * ((ng + 31) / 32);
-  for (int g0 = 0; g0 < ng; g0 += chunk_groups) {
-    const int g1 = min(g0 + chunk_groups, ng);
-    const int b0 = g0 * group;
-    const int n_blk = min(g1 * group, nb) - b0;
-    for (int i = threadIdx.x; i < kChunkBlocks / 4; i += kPreThreads) masks[i] = 0u;
-    for (int i = threadIdx.x; i < kChunkBlocks / 32; i += kPreThreads) gbits[i] = 0u;
+  const int chunk_groups = min(kChunkGroups, kChunkBlocks / group);  // a multiple of kMega
+  unsigned* row = rows + (size_t)tile * row_words;
+  for (int c0 = 0; c0 < ng; c0 += chunk_groups) {
+    const int ncg = min(chunk_groups, ng - c0);
+    const int nmc = (ncg + kMega - 1) / kMega;
+    const int b0 = c0 * group;
+    const int n_blk = min(b0 + ncg * group, nb) - b0;
+    const bool last = c0 + ncg == ng;
+    // The chunk's words of the row: the last chunk pads the row to its end.
+    const int n_words = last ? row_words - b0 / 4 : n_blk / 4;
+
+    for (int i = threadIdx.x; i < ncg * 3; i += kPreThreads) {
+      const int g = i / 3, a = i - 3 * g;
+      sm.gbox[6 * g + a] = group_lo[3 * c0 + i];
+      sm.gbox[6 * g + 3 + a] = group_hi[3 * c0 + i];
+    }
+    for (int i = threadIdx.x; i < n_words; i += kPreThreads) sm.masks[i] = 0u;
+    if (threadIdx.x < kChunkGroups / 32) {
+      sm.gvalid[threadIdx.x] = 0u;
+      sm.gbits[threadIdx.x] = 0u;
+    }
+    if (threadIdx.x < kChunkMegas / 32) {
+      sm.mvalid[threadIdx.x] = 0u;
+      sm.mbits[threadIdx.x] = 0u;
+    }
     __syncthreads();
 
-    // Stage 1: the groups any ray of the tile enters (the fill pass reads
-    // what the count pass found).
-    const int words = (g1 - g0 + 31) / 32;
-    if (kFill) {
-      for (int i = threadIdx.x; i < words; i += kPreThreads) gbits[i] = my_gbits[(g0 >> 5) + i];
+    // Megas and the NaN flags of the groups and megas.
+    for (int m = threadIdx.x; m < nmc; m += kPreThreads) {
+      float lo[3] = {NAN, NAN, NAN}, hi[3] = {NAN, NAN, NAN};
+      unsigned valid = 0u;
+      for (int k = 0; k < kMega && kMega * m + k < ncg; ++k) {
+        const float* b = sm.gbox + 6 * (kMega * m + k);
+        if (!box_has_nan(b)) valid |= 1u << k;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {  // fminf / fmaxf drop a NaN: the union
+          lo[a] = fminf(lo[a], fminf(b[a], b[3 + a]));
+          hi[a] = fmaxf(hi[a], fmaxf(b[a], b[3 + a]));
+        }
+      }
+      float* mb = sm.mbox + 6 * m;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        mb[a] = lo[a];
+        mb[3 + a] = hi[a];
+      }
+      if (valid) atomicOr(&sm.gvalid[m >> 2], valid << ((m & 3) * 8));
+      if (!box_has_nan(mb)) atomicOr(&sm.mvalid[m >> 5], 1u << (m & 31));
+    }
+    __syncthreads();
+
+    // Stages 0 and 1: the groups some ray of the tile enters.
+    if (checked) {
+      for (int w = 0; w < (ncg + 31) / 32; ++w) {
+        for (unsigned gv = sm.gvalid[w]; gv; gv &= gv - 1) {
+          const int g = 32 * w + __ffs(gv) - 1;
+          const bool any = subtile_bits<NSUB>(ray, sm.gbox + 6 * g, true, t_max, t_prev) != 0u;
+          if (__any_sync(kFull, any) && lane == 0) atomicOr(&sm.gbits[w], 1u << (g & 31));
+        }
+      }
+      n_group += ncg;
     } else {
-      for (int g = g0; g < g1; ++g) {
-        bool any = false;
-#pragma unroll
-        for (int s = 0; s < NSUB; ++s) {
-          any |= slab(ray[s], group_lo + 3 * g, group_hi + 3 * g, t_max);
+      for (int w = 0; w < (nmc + 31) / 32; ++w) {
+        for (unsigned mv = sm.mvalid[w]; mv; mv &= mv - 1) {
+          const int m = 32 * w + __ffs(mv) - 1;
+          const bool any = subtile_bits<NSUB>(ray, sm.mbox + 6 * m, false, t_max, t_prev) != 0u;
+          if (__any_sync(kFull, any) && lane == 0) atomicOr(&sm.mbits[w], 1u << (m & 31));
         }
-        if (__any_sync(kFull, any) && lane == 0) {
-          atomicOr(&gbits[(g - g0) >> 5], 1u << ((g - g0) & 31));
+      }
+      n_mega += nmc;
+      __syncthreads();
+      for (int w = 0; w < (nmc + 31) / 32; ++w) {
+        for (unsigned mh = sm.mbits[w]; mh; mh &= mh - 1) {
+          const int m = 32 * w + __ffs(mh) - 1;
+          n_group += min(kMega, ncg - kMega * m);
+          const unsigned cand = (sm.gvalid[m >> 2] >> ((m & 3) * 8)) & 0xFFu;
+          for (unsigned gv = cand; gv; gv &= gv - 1) {
+            const int g = kMega * m + __ffs(gv) - 1;
+            const bool any =
+                subtile_bits<NSUB>(ray, sm.gbox + 6 * g, false, t_max, t_prev) != 0u;
+            if (__any_sync(kFull, any) && lane == 0) atomicOr(&sm.gbits[g >> 5], 1u << (g & 31));
+          }
         }
       }
     }
     __syncthreads();
-    if (!kFill) {
-      for (int i = threadIdx.x; i < words; i += kPreThreads) my_gbits[(g0 >> 5) + i] = gbits[i];
-      if (threadIdx.x == 0) {
-        for (int i = 0; i < words; ++i) groups_hit += __popc(gbits[i]);
-      }
-    }
 
-    // Stage 2: each subtile's bit for the blocks of those groups.
-    for (int gi = 0; gi < g1 - g0; ++gi) {
-      if (!((gbits[gi >> 5] >> (gi & 31)) & 1u)) continue;
-      for (int k = 0; k < group; ++k) {
-        const int b = (g0 + gi) * group + k;
-        if (b >= nb) break;
-        unsigned bits = 0u;
+    // The hit groups in ascending order (warp 0 scans the bit words).
+    if (threadIdx.x < 32) {
+      const int words = (ncg + 31) / 32;
+      const unsigned bits = lane < words ? sm.gbits[lane] : 0u;
+      const int n = __popc(bits);
+      int incl = n;
 #pragma unroll
-        for (int s = 0; s < NSUB; ++s) {
-          if (slab(ray[s], block_lo + 3 * b, block_hi + 3 * b, t_max)) bits |= 1u << s;
+      for (int k = 1; k < 32; k <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, k);
+        if (lane >= k) incl += y;
+      }
+      int pos = incl - n;
+      for (unsigned b = bits; b; b &= b - 1) sm.glist[pos++] = 32 * lane + __ffs(b) - 1;
+      if (lane == 31) sm.n_hit = incl;
+    }
+    __syncthreads();
+    const int n_hit = sm.n_hit;
+    groups_hit += n_hit;
+
+    // Stage 2: the blocks of the hit groups, kStage boxes at a time.
+    const int per_batch = kStage / group;
+    for (int h0 = 0; h0 < n_hit; h0 += per_batch) {
+      const int n_stage = min(per_batch, n_hit - h0) * group;
+      for (int j = threadIdx.x; j < n_stage; j += kPreThreads) {
+        const int bl = sm.glist[h0 + j / group] * group + (j & (group - 1));
+        int id = -1;
+        if (bl < n_blk) {
+          const int b = b0 + bl;
+          float* sb = sm.sbox + 6 * j;
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            sb[a] = __ldg(block_lo + 3 * b + a);
+            sb[3 + a] = __ldg(block_hi + 3 * b + a);
+          }
+          if (!box_has_nan(sb)) id = bl;
         }
+        sm.sid[j] = id;
+      }
+      __syncthreads();
+      for (int j = 0; j < n_stage; ++j) {
+        const int bl = sm.sid[j];
+        if (bl < 0) continue;
+        unsigned bits = subtile_bits<NSUB>(ray, sm.sbox + 6 * j, checked, t_max, t_prev);
         bits = __reduce_or_sync(kFull, bits);
-        if (lane == 0 && bits) {
-          const int bl = b - b0;
-          atomicOr(&masks[bl >> 2], bits << ((bl & 3) * 8));
-        }
+        if (lane == 0 && bits) atomicOr(&sm.masks[bl >> 2], bits << ((bl & 3) * 8));
       }
+      __syncthreads();
     }
-    __syncthreads();
+    if (stage_counts && threadIdx.x == 0) {
+      for (int h = 0; h < n_hit; ++h) n_block += min(group, n_blk - sm.glist[h] * group);
+    }
 
-    // Compaction: rank of each hit block in each subtile's list, ascending.
-    for (int base = 0; base < n_blk; base += kPreThreads) {
-      const int bl = base + threadIdx.x;
-      const unsigned bits = bl < n_blk ? (masks[bl >> 2] >> ((bl & 3) * 8)) & 0xFFu : 0u;
-      if (!__syncthreads_or(bits != 0u)) continue;  // no block of this piece is hit
-      unsigned bal[NSUB + 1];
+    // The chunk's bytes to the tile's row; each subtile's bits and the union.
+    for (int i = threadIdx.x; i < n_words; i += kPreThreads) {
+      const unsigned v = sm.masks[i];
+      row[b0 / 4 + i] = v;
 #pragma unroll
-      for (int s = 0; s <= NSUB; ++s) {
-        bal[s] = __ballot_sync(kFull, s < NSUB ? (bits >> s) & 1u : bits != 0u);
-        if (lane == 0) warp_cnt[s][warp] = __popc(bal[s]);
-      }
-      __syncthreads();
-      if (kFill) {
-#pragma unroll
-        for (int s = 0; s < NSUB; ++s) {
-          if (!((bits >> s) & 1u)) continue;
-          int pos = run[s] + __popc(bal[s] & lt_mask);
-          for (int w = 0; w < warp; ++w) pos += warp_cnt[s][w];
-          blocks[my_offset[s] + pos] = b0 + bl;
-        }
-      }
-      __syncthreads();
-      if (threadIdx.x <= NSUB) {
-        int total = 0;
-        for (int w = 0; w < kPreWarps; ++w) total += warp_cnt[threadIdx.x][w];
-        run[threadIdx.x] += total;
-      }
-      // The next piece's __syncthreads_or orders this update before its reads.
+      for (int s = 0; s < NSUB; ++s) cnt[s] += __popc(v & (0x01010101u << s));
+      cnt[NSUB] += __popc(__vcmpne4(v, 0u)) >> 3;
     }
     __syncthreads();
   }
-  if (!kFill) {
-    if (threadIdx.x < NSUB) sub_counts[tile * NSUB + threadIdx.x] = run[threadIdx.x];
-    if (threadIdx.x == NSUB) tile_union[tile] = run[NSUB];
-    if (threadIdx.x == 0) tile_groups[tile] = groups_hit;
+
+#pragma unroll
+  for (int s = 0; s <= NSUB; ++s) {
+    const int total = __reduce_add_sync(kFull, (unsigned)cnt[s]);
+    if (lane == 0) atomicAdd(&sm.totals[s], total);
+  }
+  __syncthreads();
+  if (threadIdx.x < NSUB) sub_counts[tile * NSUB + threadIdx.x] = sm.totals[threadIdx.x];
+  if (threadIdx.x == NSUB) tile_union[tile] = sm.totals[NSUB];
+  if (threadIdx.x == 0) {
+    tile_groups[tile] = groups_hit;
+    if (stage_counts) {
+      const unsigned long long rays = NSUB * kSub;
+      atomicAdd(stage_counts + 0, n_mega * rays);
+      atomicAdd(stage_counts + 1, n_group * rays);
+      atomicAdd(stage_counts + 2, n_block * rays);
+      atomicAdd(stage_counts + 3, checked ? 1ull : 0ull);
+    }
   }
 }
 
+// Fill pass: no slab test.  Thread t takes words [t * per, (t + 1) * per) of
+// the tile's row, so the threads' runs are in block order; a block-wide scan
+// of each subtile's counts gives each thread's place in the subtile's list.
 template <int NSUB>
-cudaError_t launch_prepass(int fill, int n_tiles, cudaStream_t stream,
-                           const float* o, const float* d, const float* blo,
-                           const float* bhi, const float* glo, const float* ghi,
-                           int* sub_counts, int* tile_groups, int* tile_union,
-                           unsigned* tile_gbits, const int* offsets, int* blocks, int nb,
-                           int group, float t_max) {
-  if (fill) {
-    pairs_prepass_kernel<NSUB, true><<<n_tiles, kPreThreads, 0, stream>>>(
-        o, d, blo, bhi, glo, ghi, sub_counts, tile_groups, tile_union, tile_gbits,
-        offsets, blocks, nb, group, t_max);
-  } else {
-    pairs_prepass_kernel<NSUB, false><<<n_tiles, kPreThreads, 0, stream>>>(
-        o, d, blo, bhi, glo, ghi, sub_counts, tile_groups, tile_union, tile_gbits,
-        offsets, blocks, nb, group, t_max);
+__global__ void __launch_bounds__(kPreThreads)
+pairs_prepass_fill_kernel(const unsigned* __restrict__ rows,  // (T, row_words)
+                    const int* __restrict__ offsets,    // (T * NSUB + 1)
+                    int* __restrict__ blocks,           // (P)
+                    int row_words) {
+  __shared__ int warp_tot[NSUB][kPreWarps];
+  const int tile = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned* row = rows + (size_t)tile * row_words;
+  const int per = (row_words + kPreThreads - 1) / kPreThreads;
+  const int w0 = min((int)threadIdx.x * per, row_words), w1 = min(w0 + per, row_words);
+  int pos[NSUB];
+#pragma unroll
+  for (int s = 0; s < NSUB; ++s) pos[s] = 0;
+  for (int w = w0; w < w1; ++w) {
+    const unsigned v = row[w];
+#pragma unroll
+    for (int s = 0; s < NSUB; ++s) pos[s] += __popc(v & (0x01010101u << s));
   }
+#pragma unroll
+  for (int s = 0; s < NSUB; ++s) {
+    const int n = pos[s];
+    int incl = n;
+#pragma unroll
+    for (int k = 1; k < 32; k <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, k);
+      if (lane >= k) incl += y;
+    }
+    pos[s] = incl - n;
+    if (lane == 31) warp_tot[s][warp] = incl;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < NSUB; ++s) {
+    int base = offsets[tile * NSUB + s];
+    for (int k = 0; k < warp; ++k) base += warp_tot[s][k];
+    pos[s] += base;
+  }
+  for (int w = w0; w < w1; ++w) {
+    const unsigned v = row[w];
+    if (!v) continue;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned byte = (v >> (8 * k)) & 0xFFu;
+      if (!byte) continue;
+      const int b = 4 * w + k;
+#pragma unroll
+      for (int s = 0; s < NSUB; ++s) {
+        if ((byte >> s) & 1u) blocks[pos[s]++] = b;
+      }
+    }
+  }
+}
+
+// Words of a tile's row of subtile bytes: NB bytes padded to 16.
+inline int prepass_row_words(int nb) { return (nb + 15) / 16 * 4; }
+
+template <int NSUB>
+cudaError_t launch_prepass(int fill, int n_tiles, cudaStream_t stream, const float* o,
+                           const float* d, const float* blo, const float* bhi,
+                           const float* glo, const float* ghi, int* sub_counts,
+                           int* tile_groups, int* tile_union, unsigned* rows,
+                           const int* offsets, int* blocks, unsigned long long* stage_counts,
+                           int nb, int group, float t_max) {
+  const int row_words = prepass_row_words(nb);
+  if (fill) {
+    pairs_prepass_fill_kernel<NSUB><<<n_tiles, kPreThreads, 0, stream>>>(rows, offsets, blocks,
+                                                                   row_words);
+    return cudaGetLastError();
+  }
+  const size_t smem = sizeof(PrepassSmem);
+  cudaError_t err = cudaFuncSetAttribute(pairs_prepass_kernel<NSUB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  // The fast form needs 0 < t_max <= 3e38 (header); t_prev is the float
+  // below t_max.
+  const int fast_t = t_max > 0.0f && t_max <= kBig;
+  const float t_prev = fast_t ? nextafterf(t_max, 0.0f) : t_max;
+  pairs_prepass_kernel<NSUB><<<n_tiles, kPreThreads, smem, stream>>>(
+      o, d, blo, bhi, glo, ghi, sub_counts, tile_groups, tile_union, rows, stage_counts, nb,
+      group, row_words, t_max, t_prev, fast_t);
   return cudaGetLastError();
 }
 
@@ -481,23 +750,16 @@ __global__ void best_finalize(const unsigned long long* __restrict__ best,
   slot_out[i] = p == miss ? -1 : (int)(p & 0xFFFFFFFFull);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Each launch function runs on `stream` and returns cudaGetLastError() after
-// its last launch (0 when every launch was accepted).
-
 // One pass of the prepass over n_tiles tiles of n_sub subtiles: fill = 0
-// writes sub_counts, tile_groups, tile_union and tile_gbits; fill = 1 reads
-// tile_gbits and writes blocks at offsets.  group: a power of two <= 128.
-int raycast_pairs_prepass_launch(const void* origins, const void* dirs,
-                                 const void* block_lo, const void* block_hi,
-                                 const void* group_lo, const void* group_hi,
-                                 void* sub_counts, void* tile_groups, void* tile_union,
-                                 void* tile_gbits, const void* offsets, void* blocks,
-                                 int n_tiles, int n_sub, int nb, int group, float t_max,
-                                 int fill, void* stream) {
+// (pairs_prepass_kernel) writes sub_counts, tile_groups, tile_union and the
+// tiles' rows of subtile bytes in `rows` (n_tiles * ceil(nb / 16) * 4 words);
+// fill = 1 (pairs_prepass_fill_kernel) reads `rows` and writes blocks at offsets.
+// group: a power of two <= 128.
+int prepass(const void* origins, const void* dirs, const void* block_lo,
+            const void* block_hi, const void* group_lo, const void* group_hi,
+            void* sub_counts, void* tile_groups, void* tile_union, void* rows,
+            const void* offsets, void* blocks, void* stage_counts, int n_tiles, int n_sub,
+            int nb, int group, float t_max, int fill, void* stream) {
   if (n_tiles <= 0 || nb <= 0 || group <= 0 || group > 128 || (group & (group - 1))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -506,13 +768,14 @@ int raycast_pairs_prepass_launch(const void* origins, const void* dirs,
   const float *blo = (const float*)block_lo, *bhi = (const float*)block_hi;
   const float *glo = (const float*)group_lo, *ghi = (const float*)group_hi;
   int *cnt = (int*)sub_counts, *grp = (int*)tile_groups, *uni = (int*)tile_union;
-  unsigned* gb = (unsigned*)tile_gbits;
+  unsigned* rw = (unsigned*)rows;
   const int* off = (const int*)offsets;
   int* blk = (int*)blocks;
+  unsigned long long* sc = (unsigned long long*)stage_counts;
 #define PREPASS(N)                                                                 \
   case N:                                                                          \
     return (int)launch_prepass<N>(fill, n_tiles, st, o, d, blo, bhi, glo, ghi, cnt, \
-                                  grp, uni, gb, off, blk, nb, group, t_max)
+                                  grp, uni, rw, off, blk, sc, nb, group, t_max)
   switch (n_sub) {
     PREPASS(1);
     PREPASS(2);
@@ -523,6 +786,29 @@ int raycast_pairs_prepass_launch(const void* origins, const void* dirs,
   }
 #undef PREPASS
 }
+
+}  // namespace
+
+extern "C" {
+
+// One pass of the prepass (see prepass above).  stage_counts: null, or (on
+// the count pass) 4 zeroed uint64 to which the count pass adds the megas,
+// groups and blocks it considers, each times the tile's rays, and the tiles
+// that took the checked form.
+int raycast_pairs_prepass_launch(const void* origins, const void* dirs,
+                                 const void* block_lo, const void* block_hi,
+                                 const void* group_lo, const void* group_hi,
+                                 void* sub_counts, void* tile_groups, void* tile_union,
+                                 void* rows, const void* offsets, void* blocks,
+                                 void* stage_counts, int n_tiles, int n_sub, int nb,
+                                 int group, float t_max, int fill, void* stream) {
+  return prepass(origins, dirs, block_lo, block_hi, group_lo, group_hi, sub_counts,
+                 tile_groups, tile_union, rows, offsets, blocks, stage_counts, n_tiles, n_sub,
+                 nb, group, t_max, fill, stream);
+}
+
+// Each launch function runs on `stream` and returns cudaGetLastError() after
+// its last launch (0 when every launch was accepted).
 
 // The pair walk: best_init, raycast_pairs_kernel over the n_pairs pairs, then
 // best_finalize into t_out (+inf on a miss) and slot_out (-1 on a miss).

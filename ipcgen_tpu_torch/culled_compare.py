@@ -18,8 +18,8 @@ them: 2.56 M rays.  Then:
   ``raycast_culled_count_launch`` where the source has it, with the port's
   argument list): its t and slot against the port's, bit for bit, and its
   counts;
-- the time of each, with CUDA events, in turns (the port, each other
-  source, each other source again, the port; mean of ``REPS`` launches);
+- the time of each, with CUDA events, in turns (``variants.time_in_turns``:
+  the port, each other source, each other source again, the port);
 - the visit floors of these rays (``raycast_culled.visit_floors``).
 
 With ``--sass DIR`` it also writes the SASS (``cuobjdump -sass``) of a kernel
@@ -33,14 +33,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import json
 import re
 import subprocess
 from pathlib import Path
 
 import torch
 
-REPS = 5
+from ipcgen_tpu_torch import variants
 
 DIVIDE_PROBE = r"""
 extern "C" __global__ void divide(const float* x, float* y) {
@@ -56,20 +55,12 @@ def build_other(name: str, src: Path) -> ctypes.CDLL:
     """Compile ``src`` as the port compiles csrc/raycast_culled.cu; bind it."""
     from ipcgen_tpu_torch.ops import _kernels
 
-    out_dir = _kernels.BUILD_DIR / "compare"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / f"lib{name}.so"
-    cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, *_kernels.SOURCES["raycast_culled"],
-           "-o", str(so), str(src)]
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(so))
+    lib = variants.build_variant(name, src, "raycast_culled")
     for kernel in ("raycast_culled", "raycast_culled_count"):
         if hasattr(lib, f"{kernel}_launch"):
             fn = getattr(lib, f"{kernel}_launch")
             fn.restype = ctypes.c_int
             fn.argtypes = _kernels.KERNELS[kernel][1]
-    lib.raycast_culled_error_string.restype = ctypes.c_char_p
-    lib.raycast_culled_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -96,18 +87,6 @@ def run_lib(lib, args, count: bool):
     if counts is not None:
         counts = dict(zip(CULLED_COUNTS, counts.tolist()))
     return t, slot, counts
-
-
-def time_ms(fn) -> float:
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(REPS):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / REPS
 
 
 def divide_sass(out_dir: Path) -> dict:
@@ -156,10 +135,8 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     out = {"card": card_line()}
     _kernels.build()
-    others = {}
-    for spec in args.against:
-        name, src = spec.split("=", 1)
-        others[name] = build_other(name, Path(src))
+    others = {name: build_other(name, src)
+              for name, src in variants.against(args.against).items()}
     _, asset, poses = main_room(device)
     intr = DualAxisLidarIntrinsics.create_blk2go_dual_axis()
     o, d, _ = scan_rays(intr, poses, torch.Generator(device=device).manual_seed(0), device,
@@ -185,11 +162,7 @@ def main(argv=None) -> int:
     fns = {"port": lambda: _kernels.raycast_culled_cuda(*kargs)}
     fns.update({name: (lambda lib=lib: run_lib(lib, kargs, count=False))
                 for name, lib in others.items()})
-    order = ["port", *others, *reversed(list(others)), "port"]
-    times = {name: [] for name in fns}
-    for name in order:
-        times[name].append(time_ms(fns[name]))
-    for name, ms in times.items():
+    for name, ms in variants.time_in_turns(fns).items():
         runs[name]["ms"] = ms
     t_final = torch.where(s_port >= 0, t_port, torch.full_like(t_port, t_init))
     out["floors"] = visit_floors(o, d, asset.block_lo, asset.block_hi, asset.super_lo,
@@ -199,11 +172,7 @@ def main(argv=None) -> int:
     out["runs"] = runs
     if args.sass is not None:
         out["sass_instructions"] = divide_sass(args.sass)
-    text = json.dumps(out, indent=1)
-    print(text, flush=True)
-    if args.out is not None:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(text)
+    variants.emit(out, args.out)
     return 0
 
 

@@ -50,7 +50,7 @@ _C_PTR, _C_INT, _C_FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "raycast_pairs": ("raycast_pairs", [_C_PTR] * 7 + [_C_INT] * 4 + [_C_FLOAT, _C_PTR]),
     "raycast_pairs_prepass": ("raycast_pairs",
-                              [_C_PTR] * 12 + [_C_INT] * 4 + [_C_FLOAT, _C_INT, _C_PTR]),
+                              [_C_PTR] * 13 + [_C_INT] * 4 + [_C_FLOAT, _C_INT, _C_PTR]),
     "raycast_culled": ("raycast_culled",
                        [_C_PTR] * 9 + [_C_INT] * 5 + [_C_FLOAT, _C_PTR]),
     "raycast_culled_count": ("raycast_culled",
@@ -63,8 +63,10 @@ KERNELS = {
                            [_C_PTR] * 7 + [_C_INT] * 2 + [_C_FLOAT, _C_PTR]),
 }
 
-# Launch count per kernel; a run resets these to 0 and reads them after.
-LAUNCHES = {name: 0 for name in KERNELS}
+# Launch count per kernel, and of the prepass's counting launch under its own
+# key (it never runs on the main path); a run resets these to 0 and reads
+# them after.
+LAUNCHES = {name: 0 for name in (*KERNELS, "raycast_pairs_prepass_count")}
 # Seconds the last build of each source took (0.0 when it was already built).
 BUILD_SECONDS = {}
 
@@ -151,7 +153,7 @@ def _check(x: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
 def _launch(name: str, device: torch.device, *args, count: bool = True) -> None:
     """Call kernel ``name``'s ``<name>_launch`` on the current stream of
     ``device``; raise if the launch was refused, else count it (unless
-    ``count`` is False: the first of a wrapper's two passes)."""
+    ``count`` is False: the prepass counts its two passes once, itself)."""
     source = KERNELS[name][0]
     lib = build()[source]
     with torch.cuda.device(device):
@@ -166,26 +168,54 @@ def _launch(name: str, device: torch.device, *args, count: bool = True) -> None:
 
 def raycast_pairs_prepass_cuda(origins, dirs, block_lo, block_hi, group_lo,
                                group_hi, group: int, t_max: float, n_sub: int):
-    """Launch ``pairs_prepass_kernel`` (csrc/raycast_pairs.cu): the exact
+    """Launch the exact pair prepass (csrc/raycast_pairs.cu: the count pass
+    ``pairs_prepass_kernel``, then ``pairs_prepass_fill_kernel``): the exact
     candidate list of every 256-ray subtile, with no cap.
 
     origins, dirs (T * n_sub * 256, 3) float32; block_lo, block_hi (NB, 3)
     and group_lo, group_hi (ceil(NB / group), 3) float32 (the NaN-aware
     unions of ``group`` consecutive blocks); all on one CUDA device; n_sub in
-    1, 2, 4, 8 and ``group`` a power of two up to 128.  The count pass, then
-    CSR offsets by ``torch.cumsum`` and one host read of their total (it
-    sizes the list), then the fill pass, which reuses the count pass's group
-    bits (scratch of one bit per tile and group); one launch is counted.
-    Returns (offsets (S+1,) int32, blocks (P,) int32 ascending per subtile,
-    groups (T,) int32 block groups each tile crosses, union (T,) int32
-    blocks in the union of its subtiles' lists).
+    1, 2, 4, 8 and ``group`` a power of two up to 128.  The count pass (megas
+    of 8 groups, then groups, then blocks) leaves one byte of subtile bits
+    per (tile, block) in scratch (T x NB bytes, rows padded to 16); then CSR
+    offsets by ``torch.cumsum`` and one host read of their total (it sizes
+    the list), then the fill pass, which only compacts the bytes.  One launch
+    is counted.  Returns (offsets (S+1,) int32, blocks (P,) int32 ascending
+    per subtile, groups (T,) int32 block groups each tile crosses, union (T,)
+    int32 blocks in the union of its subtiles' lists).
     """
+    return _prepass(origins, dirs, block_lo, block_hi, group_lo, group_hi, group, t_max,
+                    n_sub, counting=False)
+
+
+# The counting launch's counts: the megas, groups and blocks the count pass
+# considers (a NaN box is considered and skipped), each once for every ray
+# of its tile, and the tiles that took the checked form.
+PREPASS_COUNTS = ("mega_tests", "group_tests", "block_tests", "checked_tiles")
+
+
+def raycast_pairs_prepass_count_cuda(origins, dirs, block_lo, block_hi, group_lo,
+                                     group_hi, group: int, t_max: float, n_sub: int):
+    """``raycast_pairs_prepass_cuda`` with the count pass's stage counts: the
+    same four outputs plus a dict of ``PREPASS_COUNTS``.  Counted under
+    ``LAUNCHES["raycast_pairs_prepass_count"]``; the main path never calls
+    it."""
+    return _prepass(origins, dirs, block_lo, block_hi, group_lo, group_hi, group, t_max,
+                    n_sub, counting=True)
+
+
+def _prepass(origins, dirs, block_lo, block_hi, group_lo, group_hi, group: int,
+             t_max: float, n_sub: int, counting: bool, launch=None):
+    """The two passes, each through ``launch(*args)``: a call of a
+    ``raycast_pairs_prepass_launch`` with its C arguments but the stream.
+    The default is the port's, counted once per call in ``LAUNCHES``; another
+    build of the source (``prepass_compare``) passes its own, uncounted."""
     device = origins.device
     if device.type != "cuda":
         raise ValueError(f"raycast_pairs_prepass_cuda: origins is on {device}, not CUDA")
-    for x, name in ((origins, "origins"), (dirs, "dirs"), (block_lo, "block_lo"),
-                    (block_hi, "block_hi"), (group_lo, "group_lo"), (group_hi, "group_hi")):
-        _check(x, name, torch.float32, 2, device)
+    for x, arg in ((origins, "origins"), (dirs, "dirs"), (block_lo, "block_lo"),
+                   (block_hi, "block_hi"), (group_lo, "group_lo"), (group_hi, "group_hi")):
+        _check(x, arg, torch.float32, 2, device)
     if n_sub not in (1, 2, 4, 8):
         raise ValueError(f"n_sub must be 1, 2, 4 or 8, got {n_sub}")
     if group not in (1, 2, 4, 8, 16, 32, 64, 128):
@@ -205,12 +235,17 @@ def raycast_pairs_prepass_cuda(origins, dirs, block_lo, block_hi, group_lo,
     sub_counts = torch.empty(n_tiles * n_sub, **i32)
     groups = torch.empty(n_tiles, **i32)
     union = torch.empty(n_tiles, **i32)
-    gbits = torch.empty(n_tiles * -(-ng // 32), **i32)
+    rows = torch.empty(n_tiles * (-(-nb // 16) * 4), **i32)  # subtile bytes per block
+    counts = torch.zeros(len(PREPASS_COUNTS), dtype=torch.int64, device=device) \
+        if counting else None
+    port = launch is None
+    if port:
+        def launch(*args):
+            _launch("raycast_pairs_prepass", device, *args, count=False)
     boxes = [x.data_ptr() for x in (origins, dirs, block_lo, block_hi, group_lo, group_hi)]
     sizes = (n_tiles, n_sub, nb, int(group), float(t_max))
-    _launch("raycast_pairs_prepass", device, *boxes, sub_counts.data_ptr(),
-            groups.data_ptr(), union.data_ptr(), gbits.data_ptr(), None, None, *sizes, 0,
-            count=False)
+    launch(*boxes, sub_counts.data_ptr(), groups.data_ptr(), union.data_ptr(),
+           rows.data_ptr(), None, None, counts.data_ptr() if counting else None, *sizes, 0)
     offsets = torch.zeros(n_tiles * n_sub + 1, dtype=torch.int64, device=device)
     offsets[1:] = torch.cumsum(sub_counts, 0)
     n_pairs = int(offsets[-1])  # the one host read: it sizes the pair list
@@ -218,8 +253,12 @@ def raycast_pairs_prepass_cuda(origins, dirs, block_lo, block_hi, group_lo,
         raise ValueError(f"{n_pairs} pairs do not fit int32 offsets")
     offsets = offsets.to(torch.int32)
     blocks = torch.empty(n_pairs, **i32)
-    _launch("raycast_pairs_prepass", device, *boxes, None, None, None, gbits.data_ptr(),
-            offsets.data_ptr(), blocks.data_ptr(), *sizes, 1)
+    launch(*boxes, None, None, None, rows.data_ptr(), offsets.data_ptr(), blocks.data_ptr(),
+           None, *sizes, 1)
+    if port:
+        LAUNCHES["raycast_pairs_prepass_count" if counting else "raycast_pairs_prepass"] += 1
+    if counting:
+        return offsets, blocks, groups, union, dict(zip(PREPASS_COUNTS, counts.tolist()))
     return offsets, blocks, groups, union
 
 

@@ -17,7 +17,9 @@ Rays are cut into tiles of 2048 rays (1024 when ray-sorted) and each tile
 into subtiles of 256 rays.  The prepass gives each subtile the exact,
 ascending list of leaf blocks any of its rays can enter within ``t_max``
 (two slab-test stages: block groups, then the blocks of the groups that were
-hit), as a CSR pair list (``offsets``, ``blocks``).  Nothing caps the lists.
+hit; the kernel tests mega boxes of ``MEGA`` groups first, which
+``prepass_model`` models), as a CSR pair list (``offsets``, ``blocks``).
+Nothing caps the lists.
 The JAX package capped each tile at ``gmax`` groups and ``vmax`` blocks and
 sent a tile over either cap down a walk-all fallback; the port keeps that
 overflow predicate only as a statistic (``overflow``, ``overflow_frac``),
@@ -289,6 +291,147 @@ def group_boxes(block_lo, block_hi, group: int):
     glo = _nanmin(torch.cat([block_lo, nanrows]).view(ng, group, 3), dim=1)
     ghi = _nanmax(torch.cat([block_hi, nanrows]).view(ng, group, 3), dim=1)
     return glo.contiguous(), ghi.contiguous()
+
+
+MEGA = 8  # groups per mega box (kMega in csrc/raycast_pairs.cu)
+
+
+def mega_boxes(group_lo, group_hi):
+    """(NM, 3) lo and hi of the mega boxes, NM = ceil(NG / MEGA): per axis
+    the least and the greatest of the non-NaN lo and hi coordinates of
+    ``MEGA`` consecutive groups (the union of the boxes as point sets, which
+    is their AABB union when lo <= hi), NaN where all are NaN."""
+    ng = group_lo.shape[0]
+    nm = -(-ng // MEGA)
+    nanrows = torch.full((nm * MEGA - ng, 3), float("nan"), device=group_lo.device)
+    lo = torch.cat([group_lo, nanrows]).view(nm, MEGA, 3)
+    hi = torch.cat([group_hi, nanrows]).view(nm, MEGA, 3)
+    both = torch.cat([lo, hi], dim=1)
+    return _nanmin(both, dim=1).contiguous(), _nanmax(both, dim=1).contiguous()
+
+
+def checked_tiles(origins, dirs, t_max: float, tile: int):
+    """(T,) bool: the tiles the prepass kernel runs on its checked path,
+    which tests every group with NaN checks and no mega level: a tile with a
+    non-finite ray component, or every tile when t_max is not in
+    (0, 3e38]."""
+    n_tiles = origins.shape[0] // tile
+    finite = torch.isfinite(origins.view(n_tiles, -1)).all(1) & \
+        torch.isfinite(dirs.view(n_tiles, -1)).all(1)
+    if not 0.0 < t_max <= _BIG:
+        return torch.ones_like(finite)
+    return ~finite
+
+
+def prepass_model(origins, dirs, block_lo, block_hi, *, t_max: float, group: int,
+                  tile: int, n_sub: int):
+    """Plain model of ``pairs_prepass_kernel``'s three levels: each tile's
+    rays against the mega boxes, then the groups of the megas any of them
+    enters, then the blocks of the groups any of them enters (a checked tile,
+    ``checked_tiles``, tests every group).  It gives ``exact_prepass_plain``'s
+    four outputs when no level prunes a box that a ray enters (the argument
+    in the kernel's header), and the boxes the kernel considers at each
+    level, each counted once for every ray of its tile:
+    (offsets, blocks, groups, union, counts) with counts ``mega_tests``,
+    ``group_tests``, ``block_tests``, ``checked_tiles``."""
+    dev = origins.device
+    n_tiles = origins.shape[0] // tile
+    nb = block_lo.shape[0]
+    ng = -(-nb // group)
+    o_t, d_t = origins.view(n_tiles, tile, 3), dirs.view(n_tiles, tile, 3)
+    glo, ghi = group_boxes(block_lo, block_hi, group)
+    mlo, mhi = mega_boxes(glo, ghi)
+    nm = mlo.shape[0]
+    checked = checked_tiles(origins, dirs, t_max, tile)
+    mega_hit = _tile_slab_or(o_t, d_t, mlo, mhi, t_max) & ~checked[:, None]
+    cand = mega_hit.repeat_interleave(MEGA, dim=1)[:, :ng] | checked[:, None]
+    group_hit = _tile_slab_or(o_t, d_t, glo, ghi, t_max) & cand
+    # The blocks of each tile's hit groups, ascending (padding ids >= NB
+    # stand for NaN boxes, which no ray enters).
+    gids = torch.arange(ng, dtype=torch.int32, device=dev).expand(n_tiles, ng)
+    gids_sorted, counts_g = _compact_ids(group_hit, gids)
+    gmax = max(int(counts_g.max()), 1)
+    gsel = torch.where(torch.arange(gmax, device=dev)[None, :] < counts_g[:, None],
+                       gids_sorted[:, :gmax], torch.full_like(gids_sorted[:, :gmax], ng))
+    block_ids = (gsel[:, :, None] * group
+                 + torch.arange(group, dtype=torch.int32, device=dev)).reshape(n_tiles, -1)
+    nanrows = torch.full((ng * group + group - nb, 3), float("nan"), device=dev)
+    idx = block_ids.long()
+    blo_p, bhi_p = torch.cat([block_lo, nanrows]), torch.cat([block_hi, nanrows])
+    hit = _tile_slab_or(o_t, d_t, blo_p[idx], bhi_p[idx], t_max, subtiles=n_sub)
+    hit = hit.view(n_tiles, n_sub, -1)  # (T, S, gmax * group)
+    nz = hit.reshape(n_tiles * n_sub, -1).nonzero()
+    offsets = torch.zeros(n_tiles * n_sub + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(hit.reshape(n_tiles * n_sub, -1).sum(1), 0).to(torch.int32)
+    blocks = block_ids[nz[:, 0] // n_sub, nz[:, 1]]
+    groups = group_hit.sum(1).to(torch.int32)
+    # Boxes considered: every mega on an unchecked tile, the groups of its
+    # hit megas (every group on a checked tile), the blocks of its hit groups.
+    group_sizes = (torch.arange(ng, device=dev) + 1) * group
+    group_sizes = torch.clamp(group_sizes, max=nb) - torch.arange(ng, device=dev) * group
+    mega_sizes = torch.clamp((torch.arange(nm, device=dev) + 1) * MEGA, max=ng) \
+        - torch.arange(nm, device=dev) * MEGA
+    counts = dict(
+        mega_tests=int((~checked).sum()) * nm * tile,
+        group_tests=(int((mega_hit.long() * mega_sizes).sum())
+                     + int(checked.sum()) * ng) * tile,
+        block_tests=int((group_hit.long() * group_sizes).sum()) * tile,
+        checked_tiles=int(checked.sum()),
+    )
+    union = hit.any(dim=1).sum(1).to(torch.int32)
+    return offsets, blocks.to(torch.int32).contiguous(), groups, union, counts
+
+
+FLOOR_RAYS = {"per_ray_tests": 1, "warp32_tests": 32, "subtile_tests": 256}
+
+
+def prepass_floors(origins, dirs, block_lo, block_hi, *, t_max: float, group: int,
+                   tile: int, chunk_rays: int = 1 << 15) -> dict:
+    """The least slab tests of the three-level prepass for these rays.
+
+    Rays descend in sets of k consecutive rays (``FLOOR_RAYS``: k = 1, 32,
+    256, and ``tile_tests`` for k = ``tile``, the kernel's own sets): every
+    ray of a set tests each mega, then the groups of the megas some ray of
+    the set enters, then the blocks of the groups some ray of the set enters.
+    A ray of a checked tile (``checked_tiles``) tests every group and no
+    mega, as the kernel's checked form does.  Boxes with a NaN coordinate are
+    skipped, not tested.  A ray that enters a block enters its group and
+    that group's mega (the argument in csrc/raycast_pairs.cu), so with k = 1
+    these are the tests that give each ray the blocks it enters, and no
+    grouping of rays needs fewer.  Returns {name: tests}.
+    """
+    n = origins.shape[0]
+    glo, ghi = group_boxes(block_lo, block_hi, group)
+    mlo, mhi = mega_boxes(glo, ghi)
+    ng, nm = glo.shape[0], mlo.shape[0]
+
+    def valid(lo, hi, size, per):  # non-NaN boxes, counted per parent
+        ok = ~(torch.isnan(lo).any(1) | torch.isnan(hi).any(1))
+        ok = torch.cat([ok, ok.new_zeros(size * per - ok.numel())])
+        return ok.view(size, per).sum(1)
+
+    blocks_per_group = valid(block_lo, block_hi, ng, group)
+    groups_per_mega = valid(glo, ghi, nm, MEGA)
+    n_megas = int((~(torch.isnan(mlo).any(1) | torch.isnan(mhi).any(1))).sum())
+    n_groups = int(groups_per_mega.sum())
+    checked = checked_tiles(origins, dirs, t_max, tile).repeat_interleave(tile)
+    sizes = dict(FLOOR_RAYS, tile_tests=tile)
+    totals = dict.fromkeys(sizes, 0)
+    chunk = max(1, chunk_rays // tile) * tile
+    for s in range(0, n, chunk):
+        o, d, chk = origins[s:s + chunk], dirs[s:s + chunk], checked[s:s + chunk]
+        o_r, d_r = o[:, None, :], d[:, None, :]  # one ray a tile
+        mega_hit = _tile_slab_or(o_r, d_r, mlo, mhi, t_max) & ~chk[:, None]
+        cand = mega_hit.repeat_interleave(MEGA, dim=1)[:, :ng] | chk[:, None]
+        group_hit = _tile_slab_or(o_r, d_r, glo, ghi, t_max) & cand
+        for name, k in sizes.items():
+            m_k = mega_hit.view(-1, k, nm).any(1).long()
+            g_k = group_hit.view(-1, k, ng).any(1).long()
+            c_k = chk.view(-1, k)[:, 0].long()
+            per_set = ((1 - c_k) * n_megas + c_k * n_groups
+                       + (m_k * groups_per_mega).sum(1) + (g_k * blocks_per_group).sum(1))
+            totals[name] += int(per_set.sum()) * k
+    return totals
 
 
 def exact_prepass_plain(origins, dirs, block_lo, block_hi, *, t_max: float,

@@ -87,8 +87,9 @@ def profile_profile(asset, intr, poses, device) -> dict:
         torch.cuda.synchronize()
     passes = {"count": 0.0, "fill": 0.0}
     for e in prof.key_averages():
-        if "pairs_prepass_kernel" in e.key:
-            passes["fill" if "true" in e.key else "count"] += e.self_device_time_total / 1e3
+        if "pairs_prepass" in e.key:
+            passes["fill" if "pairs_prepass_fill" in e.key else "count"] += \
+                e.self_device_time_total / 1e3
     st["prepass_count_pass_ms"] = passes["count"]
     st["prepass_fill_pass_ms"] = passes["fill"]
     st["pair_list_build_ms"] = st["prepass_ms"] - passes["count"] - passes["fill"]

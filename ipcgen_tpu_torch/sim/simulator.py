@@ -3,8 +3,10 @@
 Port of ``ipcgen_tpu/sim/simulator.py`` (:56-489, :509-611): load the mesh
 and build the resident scene asset, plan the trajectory on the host, run the
 fused multi-waypoint scan, build the frames and statistics, transfer labels
-and write the artifacts.  The device is explicit (default ``"cuda"``);
-nothing falls back to another device or engine.
+and write the artifacts.  The device is the card (``"cuda"``) unless the
+caller names another or the config's ``raycast_engine.use_gpu`` is False,
+which asks for the CPU (``resolve_device``); nothing falls back to another
+device or engine.
 
 The raycast backend comes from the config's ``raycast_engine.backend``, in
 the JAX package's names (``port_backend``): "auto" and "mxu" run the
@@ -74,20 +76,37 @@ def port_backend(name: str) -> str:
             f"{', '.join(map(repr, RAYCAST_BACKENDS))}") from None
 
 
+def resolve_device(device, use_gpu: bool) -> torch.device:
+    """The device a simulation runs on.  With ``use_gpu`` (the config's
+    ``raycast_engine.use_gpu``), ``device``, or the card ("cuda") when it is
+    None.  ``use_gpu=False`` asks for the CPU: the CPU, and a ``device`` other
+    than the CPU raises.  Where the JAX package drops to its CPU engine when
+    the TPU one fails, nothing here falls back."""
+    if use_gpu:
+        return as_device("cuda" if device is None else device)
+    if device is not None and torch.device(device).type != "cpu":
+        raise ValueError(f"use_gpu=False asks for the CPU, but device={device!r} was given")
+    return torch.device("cpu")
+
+
 class S3DISSimulator:
-    """Loads a scene, plans a trajectory, scans it and exports the results."""
+    """Loads a scene, plans a trajectory, scans it and exports the results.
+
+    ``device``: see ``resolve_device`` (None: the card, unless the config's
+    ``raycast_engine.use_gpu`` is False)."""
 
     def __init__(
         self,
         config: Dict[str, Any],
         use_dense_lidar: bool = False,
         use_blk2go: bool = False,
-        device="cuda",
+        device=None,
     ):
         self.config = config
         self.use_dense_lidar = use_dense_lidar
         self.use_blk2go = use_blk2go
-        self.device = as_device(device)
+        self.device = resolve_device(
+            device, (config.get("raycast_engine") or {}).get("use_gpu", True))
         self.backend = port_backend(
             (config.get("raycast_engine") or {}).get("backend", "auto"))
         self.scene: Optional[S3DISScene] = None
@@ -304,9 +323,9 @@ def load_default_config() -> Dict[str, Any]:
 
 
 def create_simulator_from_config(config_path: Optional[str] = None,
-                                 device="cuda") -> S3DISSimulator:
-    """Simulator on ``device`` from a config file (the default config when
-    None).
+                                 device=None) -> S3DISSimulator:
+    """Simulator on ``device`` (``resolve_device``) from a config file (the
+    default config when None).
 
     Takes both the flat simulator dict and the typed ``PipelineConfig`` tree
     (``configs/default_config.yaml``); the tree goes through
@@ -329,24 +348,43 @@ def run_single_scene_simulation(
     scene_name: Optional[str] = None,
     num_waypoints: int = 20,
     output_base_dir: str = "simulation_results",
+    use_gpu: bool = True,
     robot_height: float = 1.0,
     use_dense_lidar: bool = False,
     use_blk2go: bool = True,
+    enable_mesh_visualization: bool = False,
     use_auto_trajectory: bool = True,
     s3dis_data_root: str = "S3DIS/raw/S3DIS/data/Stanford3dDataset_v1.2_Aligned_Version",
     area: Optional[str] = None,
     room: Optional[str] = None,
     seed: int = 0,
     save_visualizations: bool = False,
+    save_executor: Optional[Any] = None,
     lidar_horizontal_res: Optional[int] = None,
-    device="cuda",
+    *,
+    device=None,
 ) -> S3DISSimScene:
-    """Process one scene end to end on ``device`` (the sim stage)."""
+    """Process one scene end to end (the sim stage).
+
+    The JAX package's parameters in its order, then ``device``.  With
+    ``use_gpu`` the scene runs on ``device`` (None: the card, "cuda");
+    ``use_gpu=False`` asks for the CPU, and a ``device`` other than the CPU
+    then raises (``resolve_device``; nothing falls back).
+    ``save_visualizations`` defaults to False, not True as in the JAX
+    package, because visualisations are not ported; ``save_executor`` (the
+    asynchronous export) is not ported either and raises.
+    """
+    if save_executor is not None:
+        raise NotImplementedError(
+            "save_executor (the asynchronous export of run_auto_simulation) is not "
+            "ported yet: ROADMAP.md, Queue 1 item 2")
     if scene_name is None:
         scene_name = Path(scene_path).parent.name
     output_dir = Path(output_base_dir) / scene_name
     config = {
+        "raycast_engine": {"use_gpu": use_gpu},
         "trajectory": {"robot_height": robot_height},
+        "enable_mesh_visualization": enable_mesh_visualization,
         "s3dis_data_root": s3dis_data_root,
         "area": area,
         "room": room,

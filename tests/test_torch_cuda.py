@@ -187,6 +187,77 @@ def test_prepass_kernel_matches_plain_on_card(cuda_device, block_size):
         assert got[1].numel() > 0
 
 
+def prepass_equal(o, d, asset, **kw):
+    """The prepass kernel (and its counting launch) against its plain version
+    and the plain three-level model: the four outputs bit for bit, and the
+    counting launch's stage counts equal to the model's."""
+    from ipcgen_tpu_torch.ops import _kernels
+
+    before = dict(_kernels.LAUNCHES)
+    got = pairs.exact_prepass(o, d, asset.block_lo, asset.block_hi, **kw)
+    assert _kernels.LAUNCHES["raycast_pairs_prepass"] == before["raycast_pairs_prepass"] + 1
+    want = pairs.exact_prepass_plain(o, d, asset.block_lo, asset.block_hi, **kw)
+    for name, g, w in zip(("offsets", "blocks", "groups", "union"), got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w), (name, kw)
+    glo, ghi = pairs.group_boxes(asset.block_lo, asset.block_hi, kw["group"])
+    counted = _kernels.raycast_pairs_prepass_count_cuda(
+        o, d, asset.block_lo, asset.block_hi, glo, ghi, kw["group"], kw["t_max"],
+        kw["n_sub"])
+    assert _kernels.LAUNCHES["raycast_pairs_prepass"] == before["raycast_pairs_prepass"] + 1
+    assert (_kernels.LAUNCHES["raycast_pairs_prepass_count"]
+            == before["raycast_pairs_prepass_count"] + 1)
+    for g, w in zip(counted[:4], want):
+        assert torch.equal(g, w), kw
+    model = pairs.prepass_model(o, d, asset.block_lo, asset.block_hi, **kw)
+    assert counted[4] == model[4], (counted[4], model[4], kw)
+    floors = pairs.prepass_floors(o, d, asset.block_lo, asset.block_hi, t_max=kw["t_max"],
+                                  group=kw["group"], tile=kw["tile"])
+    tests = sum(counted[4][k] for k in ("mega_tests", "group_tests", "block_tests"))
+    assert tests >= floors["tile_tests"] >= floors["per_ray_tests"] > 0, (counted[4], floors)
+    return counted[4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [16, 32])
+def test_prepass_kernel_on_card_large_groups(cuda_device, group):
+    """More than 8,192 blocks (two triangles a block), groups of 16 and 32:
+    several of the count pass's chunks, megas of 128 and 256 blocks."""
+    verts, tris = synthetic_room(40_000)
+    asset = build_scene_asset(verts, tris, block_size=2, device=cuda_device)
+    assert asset.num_blocks > 8192
+    origins, dirs = patch_ordered_scan_rays(1, r=32_768)
+    o, d = t_(origins).to(cuda_device), t_(dirs).to(cuda_device)
+    counts = prepass_equal(o, d, asset, t_max=25.0, group=group, tile=2048, n_sub=8)
+    assert counts["checked_tiles"] == 0 and counts["mega_tests"] > 0
+    p = pairs.prepare_pairs(o, d, asset.tri_data, asset.block_lo, asset.block_hi,
+                            t_max=25.0)
+    assert p["group"] == 16  # prepare_pairs' own sizing above 8,192 blocks
+
+
+@pytest.mark.cuda
+def test_prepass_kernel_on_card_edge_cases(cuda_device):
+    """The culled kernel's edge-case rays (zero direction components, origins
+    on slab planes, hits at t_max), padded to whole tiles as prepare_pairs
+    pads: at their t_max (fast form), at t_max = inf (every tile checked),
+    and with one NaN ray and one infinite origin (those tiles checked)."""
+    verts, tris, origins, dirs, kw, t_max = culled_edge_cases()
+    asset = build_scene_asset(verts, tris, device=cuda_device, **kw)
+    o, d = t_(origins).to(cuda_device), t_(dirs).to(cuda_device)
+    tile = 512
+    pad = (-o.shape[0]) % tile + tile  # at least two tiles
+    o = torch.cat([o, o[-1:].expand(pad, 3)]).contiguous()
+    d = torch.cat([d, d[-1:].expand(pad, 3)]).contiguous()
+    n_tiles = o.shape[0] // tile
+    for group in (1, 4):
+        kw = dict(group=group, tile=tile, n_sub=2)
+        assert prepass_equal(o, d, asset, t_max=t_max, **kw)["checked_tiles"] == 0
+        assert prepass_equal(o, d, asset, t_max=float("inf"), **kw)["checked_tiles"] == n_tiles
+        o2, d2 = o.clone(), d.clone()
+        d2[3, 1] = float("nan")
+        o2[tile + 5, 0] = float("inf")
+        assert prepass_equal(o2, d2, asset, t_max=t_max, **kw)["checked_tiles"] == 2
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(cuda_device):
     from ipcgen_tpu_torch.ops import _kernels
