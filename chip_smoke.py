@@ -70,10 +70,12 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    of ``scripts/kernel_probe.py``) on the 159,744-triangle room with its
    2.56 M patch-ordered dense-32 rays: every mode of ``call``, ``grid32``
    and ``flat`` through ``kernel_probe.run``, launched and timed with CUDA
-   events, must launch all three probe kernels.  Each is held against its
-   plain version on the first 64 tiles plus up to 8 overflowed ones (result
-   modes: same slot >= 99.99 %, t within 1e-5 relative; floor modes: equal
-   bits), recip within 1e-6 of full, and the result modes and ``flat``
+   events, must launch all three probe kernels; ``call``'s schedule (work
+   items of at most 8 panels, panels per tile) is logged and recorded.
+   Each is held against its plain version on the first 64 tiles plus up to
+   8 overflowed ones (result modes: same slot >= 99.99 %, t within 1e-5
+   relative; floor modes: equal bits), recip within 1e-6 of full, and the
+   result modes and ``flat``
    against the pair kernel on every ray (bf16: 99.9 % and t within the
    raycast contract's 5 mm, its split's rounding).  Runs after phase 5, on
    the same room.
@@ -531,9 +533,14 @@ def phase_probe(device, asset) -> dict:
     torch.cuda.synchronize()
     launches = dict(_kernels.LAUNCHES)
     results = run["results"]
+    sched = run["schedule"]
     log(f"[probe] {run['rays']} rays, {run['tiles']} tiles ({run['overflow_tiles']} "
         f"overflowed), {run['blocks']} blocks; main path {time.time() - t0:.1f} s, "
         f"launches {launches}")
+    log(f"[probe] call's schedule: {sched['walked_panels']} panels walked in "
+        f"{sched['items']} items of at most {sched['item_panels']} panels; panels per "
+        f"tile {json.dumps(sched['panels_per_tile'])}; {sched['overflow_tiles']} tiles "
+        f"overflowed")
     for name in names:
         r = results[name]
         log(f"[probe] {name:11s}: {r['ms']:9.3f} ms, {r['pairs']} pairs, hit {r['hit']:.4f}")
@@ -604,7 +611,7 @@ def phase_probe(device, asset) -> dict:
                                             for n, r in results.items()},
                 checks=checks, bounds=bounds, exact_list_tests=exact,
                 subset_tiles=int(len(tiles)), subset_overflowed=int(len(over)),
-                rays=run["rays"], tiles=n_tiles)
+                rays=run["rays"], tiles=n_tiles, schedule=sched)
 
 
 # ---------------------------------------------------------------------------
@@ -1144,6 +1151,7 @@ def main() -> int:
         }
         if name == "probe_call_kernel":
             entry["also_replaces"] = "scripts/kernel_probe.py:32"
+            entry["schedule"] = probe["schedule"]
         record["kernels"].append(entry)
     print(card)
     print(json.dumps(record))

@@ -42,20 +42,42 @@
 //
 // Layout on the card: 256 threads per CUDA block, four rays per thread (rays
 // tid, tid + 256, tid + 512, tid + 768 of the tile), so each coefficient read
-// from shared memory (a warp-wide broadcast) feeds four rays.  call: one CUDA
-// block per tile, walking its list in order.  grid and flat are parallel over
-// pairs: one CUDA block per (tile, candidate) step, or per chunk of kChunk
-// consecutive pairs of the flat list.  The per-tile running minimum that the
-// TPU kept in scratch across sequential grid steps becomes a merge across
-// CUDA blocks: a 64-bit atomicMin on (t bits << 32) | slot, exact because only
-// t > 0 can win; a last pass writes t_init / -1 for the misses.
+// from shared memory (a warp-wide broadcast) feeds four rays.  The per-tile
+// running minimum that the TPU kept in scratch across sequential grid steps
+// becomes a merge across CUDA blocks.
+//
+// call: a tile's walk of `trip` panels (its list, or all nb blocks when it
+// overflowed) is cut into work items of at most kItemPanels (K) consecutive
+// list positions: item i of a tile walks positions [i*K, min((i+1)*K, trip)),
+// and a tile with trip 0 has none.  The wrapper scans the per-tile item
+// counts on the device (item_offsets, (T+1,)).  The grid is persistent, as
+// many blocks as are resident on the card at once; each takes the next item
+// from a queue (one int32 counter, atomicAdd), finds its tile by binary
+// search in item_offsets, loads the tile's 1024 rays, walks the item's panels
+// through the mode's own staging (stages() x per_step() panels) and merges.
+// One block per tile, as on the TPU, left a serial tail: a tile that
+// overflowed walked its 1,536 panels alone, tens of milliseconds after the
+// rest of the card had finished, and that tail set every mode's time.  Now
+// no block walks more than K panels of one tile in one go, so the tail is at
+// most one item.  Every mode's result is a minimum, so items merged by
+// atomicMin give the same bits in any order: the result modes and nodma a
+// 64-bit atomicMin on (t bits << 32) | slot of each hit (exact because only
+// t > 0 can win; best_init / best_finalize write t_init / -1 for the
+// misses); dmaonly(4) and smallcarry4 an int32 atomicMin on t's bits;
+// matmul and quadfloor two, on t's and on the slot's (floor_init sets their
+// start values, so the outputs keep the per-tile walk's constants).
+//
+// grid and flat are parallel over pairs: one CUDA block per (tile, candidate)
+// step, or per chunk of kChunk consecutive pairs of the flat list, merged
+// the same way as call's result modes.
 //
 // What bounds them on the card: per (ray, triangle) 25 fp32 FMAs (75 for
 // bf16) and 25 shared-memory broadcast loads per four rays; a panel (25
 // non-zero coefficient rows of 128 lanes, 12.8 KB) is read from device memory
-// once per (tile, block) pair and reused by 1024 rays, so they are bound by
-// fp32 instruction throughput, not by device memory.  wgmma for the products
-// and TMA for the panels are later work.
+// once per (tile, block) pair (call: once per item it belongs to, and no
+// panel is in two items) and reused by 1024 rays, so they are bound by fp32
+// instruction throughput, not by device memory.  wgmma for the products and
+// TMA for the panels are later work.
 // Build without --use_fast_math: the divide and the comparisons must be IEEE.
 
 #include <cuda_bf16.h>
@@ -77,6 +99,7 @@ constexpr int kCoef = 25;              // non-zero panel coefficients per lane
 constexpr int kWidth = 5 * kTB;        // panel columns
 constexpr int kPanelBytes = kCoef * kTB * 4;  // fp32 panel, or bf16 hi + lo
 constexpr int kChunk = 8;              // flat pairs per CUDA block
+constexpr int kItemPanels = 8;         // call: panels per work item (K)
 constexpr int kEpsTBits = 0x358637BD;    // bits of 1e-6f
 constexpr int kEpsDenBits = 0x3089705F;  // bits of 1e-9f
 constexpr int kIntMax = 0x7FFFFFFF;
@@ -95,6 +118,10 @@ __host__ __device__ constexpr int stages(int m) {
 }
 __host__ __device__ constexpr int per_step(int m) { return (m == kQuad || m == kQuadFloor) ? 4 : 1; }
 __host__ __device__ constexpr bool product_floor(int m) { return m == kMatmul || m == kQuadFloor; }
+// Modes whose per-ray result is a (t, slot) hit, merged as one 64-bit key.
+__host__ __device__ constexpr bool packed_merge(int m) {
+  return !(m == kDmaOnly || m == kDmaOnly4 || m == kSmallCarry4 || product_floor(m));
+}
 __host__ __device__ constexpr size_t smem_bytes(int m) {
   return (size_t)stages(m) * per_step(m) * kPanelBytes;
 }
@@ -304,92 +331,6 @@ __device__ __forceinline__ void load_rays(const float* f, int tile, float (&x)[k
   }
 }
 
-template <int M>
-__global__ void __launch_bounds__(kThreads)
-probe_call_kernel(const float* __restrict__ f,       // (T*1024, 10)
-                  const int* __restrict__ ids,       // (V, T)
-                  const int* __restrict__ counts,    // (T)
-                  const int* __restrict__ ovf,       // (T)
-                  const void* __restrict__ trif_v,   // (NB, 10, 640) f32 | (NB, 20, 640) bf16
-                  float* __restrict__ t_out,         // (T*1024)
-                  int* __restrict__ slot_out,        // (T*1024)
-                  int n_tiles, int vmax, int nb, float t_init) {
-  using Panel = typename std::conditional<M == kBf16, __nv_bfloat16, float>::type;
-  constexpr int S = stages(M), P = per_step(M);
-  constexpr int kPanelElems = kPanelBytes / sizeof(Panel);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Panel* smem = reinterpret_cast<Panel*>(smem_raw);
-  const Panel* trif = static_cast<const Panel*>(trif_v);
-
-  const int tile = blockIdx.x;
-  const bool all_blocks = ovf[tile] != 0;
-  const int trip = all_blocks ? nb : min(counts[tile], vmax);
-  const int steps = (trip + P - 1) / P;
-  auto block_id = [&](int v) {
-    return all_blocks ? v : ids[(size_t)v * n_tiles + tile];
-  };
-  auto start_step_copies = [&](int q, int stage) {
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const int v = q * P + j;
-      if (v < trip) start_panel_copy(smem + (stage * P + j) * kPanelElems, trif, block_id(v));
-    }
-  };
-
-  const int init_key = __float_as_int(t_init);
-  float x[kRays][9];
-  int bk[kRays], bs[kRays];
-  int carry = init_key;
-  load_rays(f, tile, x);
-#pragma unroll
-  for (int i = 0; i < kRays; ++i) {
-    bk[i] = init_key;
-    bs[i] = product_floor(M) ? kIntMax : -1;
-  }
-
-  if constexpr (M == kNoDma) {
-    start_panel_copy(smem, trif, 0);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-  } else {
-#pragma unroll
-    for (int s = 0; s < S - 1; ++s) {
-      if (s < steps) start_step_copies(s, s);
-      cp_async_commit();
-    }
-  }
-  for (int q = 0; q < steps; ++q) {
-    if constexpr (M != kNoDma) {
-      const int nq = q + S - 1;
-      if (nq < steps) start_step_copies(nq, nq % S);
-      cp_async_commit();
-      cp_async_wait<S - 1>();  // step q's panels have landed
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const int v = q * P + j;
-      if (v >= trip) break;
-      const Panel* pn = M == kNoDma ? smem : smem + ((q % S) * P + j) * kPanelElems;
-      walk_panel<M>(pn, block_id(v), x, bk, bs, carry);
-    }
-    if constexpr (M != kNoDma) __syncthreads();  // the stage may be refilled
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRays; ++i) {
-    const size_t r = (size_t)tile * kTile + threadIdx.x + i * kThreads;
-    if constexpr (M == kSmallCarry4) {
-      t_out[r] = __int_as_float(carry);
-      slot_out[r] = 0;
-    } else {
-      t_out[r] = __int_as_float(bk[i]);
-      slot_out[r] = bs[i];
-    }
-  }
-}
-
 // Merge a ray's (key, slot) into its 64-bit running minimum.
 __device__ __forceinline__ void merge(unsigned long long* best, int key, int slot) {
   const unsigned long long packed =
@@ -397,11 +338,131 @@ __device__ __forceinline__ void merge(unsigned long long* best, int key, int slo
   if (packed < *(volatile unsigned long long*)best) atomicMin(best, packed);
 }
 
+// Merge v into an int32 running minimum (a stale read is never below it).
+__device__ __forceinline__ void min_into(int* dst, int v) {
+  if (v < *(volatile int*)dst) atomicMin(dst, v);
+}
+
 __device__ __forceinline__ void flush(unsigned long long* best, int tile,
                                       const int (&bk)[kRays], const int (&bs)[kRays]) {
 #pragma unroll
   for (int i = 0; i < kRays; ++i) {
     if (bs[i] >= 0) merge(best + (size_t)tile * kTile + threadIdx.x + i * kThreads, bk[i], bs[i]);
+  }
+}
+
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+probe_call_kernel(const float* __restrict__ f,       // (T*1024, 10)
+                  const int* __restrict__ ids,       // (V, T)
+                  const int* __restrict__ counts,    // (T)
+                  const int* __restrict__ ovf,       // (T)
+                  const void* __restrict__ trif_v,   // (NB, 10, 640) f32 | (NB, 20, 640) bf16
+                  const int* __restrict__ item_offsets,  // (T+1) items of tile t: [o[t], o[t+1])
+                  int* __restrict__ queue,           // (1), 0 at launch: the next item
+                  unsigned long long* __restrict__ best,  // (T*1024), packed_merge(M) only
+                  int* __restrict__ t_bits,          // (T*1024) t's bits, the floors' minimum
+                  int* __restrict__ slot_out,        // (T*1024) product floors' slot minimum
+                  int n_tiles, int vmax, int nb, float t_init) {
+  using Panel = typename std::conditional<M == kBf16, __nv_bfloat16, float>::type;
+  constexpr int S = stages(M), P = per_step(M);
+  constexpr int kPanelElems = kPanelBytes / sizeof(Panel);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Panel* smem = reinterpret_cast<Panel*>(smem_raw);
+  const Panel* trif = static_cast<const Panel*>(trif_v);
+  __shared__ int taken[2];  // the item this block took, and its tile
+
+  const int n_items = item_offsets[n_tiles];
+  const int init_key = __float_as_int(t_init);
+  if constexpr (M == kNoDma) {  // block 0's panel stands for every walked block
+    start_panel_copy(smem, trif, 0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  for (;;) {
+    if (threadIdx.x == 0) {
+      const int item = atomicAdd(queue, 1);
+      int lo = 0, hi = n_tiles - 1;  // the last tile whose items start at or before it
+      while (item < n_items && lo < hi) {
+        const int mid = (lo + hi + 1) / 2;
+        if (item_offsets[mid] <= item) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
+      }
+      taken[0] = item;
+      taken[1] = lo;
+    }
+    __syncthreads();
+    const int item = taken[0], tile = taken[1];
+    __syncthreads();  // every thread has read them before the next item is taken
+    if (item >= n_items) return;
+
+    const bool all_blocks = ovf[tile] != 0;
+    const int trip = all_blocks ? nb : min(counts[tile], vmax);
+    const int first = (item - item_offsets[tile]) * kItemPanels;
+    const int n = min(kItemPanels, trip - first);  // this item's panels, 1..K
+    const int steps = (n + P - 1) / P;
+    auto block_id = [&](int v) {  // v: position in the item
+      const int pos = first + v;
+      return all_blocks ? pos : ids[(size_t)pos * n_tiles + tile];
+    };
+    auto start_step_copies = [&](int q, int stage) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int v = q * P + j;
+        if (v < n) start_panel_copy(smem + (stage * P + j) * kPanelElems, trif, block_id(v));
+      }
+    };
+
+    float x[kRays][9];
+    int bk[kRays], bs[kRays];
+    int carry = init_key;
+    load_rays(f, tile, x);
+#pragma unroll
+    for (int i = 0; i < kRays; ++i) {
+      bk[i] = init_key;
+      bs[i] = product_floor(M) ? kIntMax : -1;
+    }
+
+    if constexpr (M != kNoDma) {
+#pragma unroll
+      for (int s = 0; s < S - 1; ++s) {
+        if (s < steps) start_step_copies(s, s);
+        cp_async_commit();
+      }
+    }
+    for (int q = 0; q < steps; ++q) {
+      if constexpr (M != kNoDma) {
+        const int nq = q + S - 1;
+        if (nq < steps) start_step_copies(nq, nq % S);
+        cp_async_commit();
+        cp_async_wait<S - 1>();  // step q's panels have landed
+        __syncthreads();
+      }
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int v = q * P + j;
+        if (v >= n) break;
+        const Panel* pn = M == kNoDma ? smem : smem + ((q % S) * P + j) * kPanelElems;
+        walk_panel<M>(pn, block_id(v), x, bk, bs, carry);
+      }
+      if constexpr (M != kNoDma) __syncthreads();  // the stage may be refilled
+    }
+
+    if constexpr (packed_merge(M)) {
+      flush(best, tile, bk, bs);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRays; ++i) {
+        const size_t r = (size_t)tile * kTile + threadIdx.x + i * kThreads;
+        min_into(t_bits + r, M == kSmallCarry4 ? carry : bk[i]);
+        if constexpr (product_floor(M)) min_into(slot_out + r, bs[i]);
+      }
+    }
   }
 }
 
@@ -487,27 +548,24 @@ __global__ void best_finalize(const unsigned long long* __restrict__ best,
   slot_out[i] = p == miss ? -1 : (int)(p & 0xFFFFFFFFull);
 }
 
-template <int M>
-int launch_call(const void* f, const void* ids, const void* counts, const void* ovf,
-                const void* trif, void* t_out, void* slot_out, int n_tiles, int vmax,
-                int nb, float t_init, cudaStream_t stream) {
-  const size_t smem = smem_bytes(M);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        probe_call_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  probe_call_kernel<M><<<n_tiles, kThreads, smem, stream>>>(
-      (const float*)f, (const int*)ids, (const int*)counts, (const int*)ovf, trif,
-      (float*)t_out, (int*)slot_out, n_tiles, vmax, nb, t_init);
-  return (int)cudaGetLastError();
+// The floor modes' start: t's bits at t_init, and the slot each reports
+// (dmaonly -1, smallcarry4 0, matmul and quadfloor the start of its minimum).
+__global__ void floor_init(int* t_bits, int* slot, int n, int t_key, int slot_init) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  t_bits[i] = t_key;
+  slot[i] = slot_init;
+}
+
+unsigned float_bits(float x) {
+  unsigned bits;
+  memcpy(&bits, &x, sizeof(bits));
+  return bits;
 }
 
 // The running minimum's start: (t_init bits, slot 0xFFFFFFFF), above every hit.
 unsigned long long miss_key(float t_init) {
-  unsigned bits;
-  memcpy(&bits, &t_init, sizeof(bits));
-  return ((unsigned long long)bits << 32) | 0xFFFFFFFFull;
+  return ((unsigned long long)float_bits(t_init) << 32) | 0xFFFFFFFFull;
 }
 
 // best_init, then `main` (which launches the pair kernel), then best_finalize.
@@ -526,21 +584,69 @@ int launch_merged(void* best, void* t_out, void* slot_out, int n_tiles, float t_
   return (int)cudaGetLastError();
 }
 
+// call: the outputs' (or best's) start values, then the persistent walk over
+// the items, then (result modes and nodma) best_finalize.
+template <int M>
+int launch_call(const void* f, const void* ids, const void* counts, const void* ovf,
+                const void* trif, const void* item_offsets, void* queue, void* best,
+                void* t_out, void* slot_out, int n_tiles, int vmax, int nb, float t_init,
+                cudaStream_t stream) {
+  const size_t smem = smem_bytes(M);
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(probe_call_kernel<M>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int device, sms, per_sm;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, probe_call_kernel<M>,
+                                                           kThreads, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  auto walk = [&]() {
+    probe_call_kernel<M><<<sms * per_sm, kThreads, smem, stream>>>(
+        (const float*)f, (const int*)ids, (const int*)counts, (const int*)ovf, trif,
+        (const int*)item_offsets, (int*)queue, (unsigned long long*)best, (int*)t_out,
+        (int*)slot_out, n_tiles, vmax, nb, t_init);
+    return cudaGetLastError();
+  };
+  if constexpr (packed_merge(M)) {
+    if (best == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_merged(best, t_out, slot_out, n_tiles, t_init, stream, walk);
+  } else {
+    const int n = n_tiles * kTile;
+    const int slot_init = M == kSmallCarry4 ? 0 : product_floor(M) ? kIntMax : -1;
+    floor_init<<<(n + 255) / 256, 256, 0, stream>>>((int*)t_out, (int*)slot_out, n,
+                                                    (int)float_bits(t_init), slot_init);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)walk();
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each launch function runs on `stream` and returns cudaGetLastError() after
 // its last launch (0 when every launch was accepted).
+// call: item_offsets (T+1) int32 is the exclusive scan of each tile's item
+// count, ceil(trip / kItemPanels); queue (1) int32 must be 0; best (T*1024)
+// int64 is scratch for the result modes and nodma (null for the floors).
 int raycast_probe_call_launch(const void* f, const void* ids, const void* counts,
-                              const void* ovf, const void* trif, void* t_out,
-                              void* slot_out, int n_tiles, int vmax, int nb, int mode,
-                              float t_init, void* stream) {
+                              const void* ovf, const void* trif, const void* item_offsets,
+                              void* queue, void* best, void* t_out, void* slot_out,
+                              int n_tiles, int vmax, int nb, int mode, float t_init,
+                              void* stream) {
   if (n_tiles <= 0 || vmax <= 0 || nb <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-#define PROBE_CALL(M) \
-  case M:             \
-    return launch_call<M>(f, ids, counts, ovf, trif, t_out, slot_out, n_tiles, vmax, nb, t_init, s)
+#define PROBE_CALL(M)                                                                   \
+  case M:                                                                               \
+    return launch_call<M>(f, ids, counts, ovf, trif, item_offsets, queue, best, t_out, \
+                          slot_out, n_tiles, vmax, nb, t_init, s)
   switch (mode) {
     PROBE_CALL(kFull);
     PROBE_CALL(kFull4);

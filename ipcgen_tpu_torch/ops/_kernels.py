@@ -56,7 +56,7 @@ KERNELS = {
     "raycast_culled_count": ("raycast_culled",
                              [_C_PTR] * 10 + [_C_INT] * 5 + [_C_FLOAT, _C_PTR]),
     "raycast_probe_call": ("raycast_probe",
-                           [_C_PTR] * 7 + [_C_INT] * 4 + [_C_FLOAT, _C_PTR]),
+                           [_C_PTR] * 10 + [_C_INT] * 4 + [_C_FLOAT, _C_PTR]),
     "raycast_probe_grid": ("raycast_probe",
                            [_C_PTR] * 7 + [_C_INT] * 2 + [_C_FLOAT, _C_PTR]),
     "raycast_probe_flat": ("raycast_probe",
@@ -150,12 +150,15 @@ def _check(x: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch(name: str, device: torch.device, *args, count: bool = True) -> None:
+def _launch(name: str, device: torch.device, *args, count: bool = True, lib=None) -> None:
     """Call kernel ``name``'s ``<name>_launch`` on the current stream of
     ``device``; raise if the launch was refused, else count it (unless
-    ``count`` is False: the prepass counts its two passes once, itself)."""
+    ``count`` is False: the prepass counts its two passes once, itself).
+    ``lib``: another build of the source (``kernel_probe --against``), never
+    counted."""
     source = KERNELS[name][0]
-    lib = build()[source]
+    count = count and lib is None
+    lib = build()[source] if lib is None else lib
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, f"{name}_launch")(*args, stream)
@@ -392,14 +395,25 @@ def _probe_common(f, trif, n_tiles: int, device: torch.device, bf16: bool = Fals
 
 
 def raycast_probe_call_cuda(f, ids, counts, ovf, trif, mode: str, t_init: float):
-    """Launch ``probe_call_kernel`` in ``mode`` (csrc/raycast_probe.cu).
+    """Launch ``probe_call_kernel`` in ``mode`` (csrc/raycast_probe.cu): each
+    tile's walk cut into work items of at most ``ITEM_PANELS`` panels, taken
+    from a queue by persistent CUDA blocks and merged by atomic minimum.
 
     f (T*1024, 10) float32; ids (V, T), counts (T,), ovf (T,) int32; trif
     (NB, 10, 640) float32, or (NB, 20, 640) bfloat16 hi/lo panels for mode
-    "bf16"; all on one CUDA device.  Returns (t (T*1024,) float32,
-    slot (T*1024,) int32).
+    "bf16"; all on one CUDA device.  The item offsets (``item_offsets``) are
+    scanned on the device; nothing is read back.  Returns (t (T*1024,)
+    float32, slot (T*1024,) int32).
     """
-    from ipcgen_tpu_torch.ops.raycast_probe import MODES
+    return _probe_call(f, ids, counts, ovf, trif, mode, t_init)
+
+
+def _probe_call(f, ids, counts, ovf, trif, mode: str, t_init: float, lib=None,
+                item_panels: int | None = None):
+    """``raycast_probe_call_cuda``; ``lib`` and ``item_panels`` run another
+    build of the source whose items hold ``item_panels`` panels
+    (``kernel_probe --against``)."""
+    from ipcgen_tpu_torch.ops.raycast_probe import ITEM_PANELS, MODES, PACKED_MODES, item_offsets
 
     device = f.device
     if device.type != "cuda":
@@ -413,21 +427,28 @@ def raycast_probe_call_cuda(f, ids, counts, ovf, trif, mode: str, t_init: float)
     if ids.shape[1] != n_tiles or ovf.shape != (n_tiles,) or ids.shape[0] == 0:
         raise ValueError(f"ids {tuple(ids.shape)}, ovf {tuple(ovf.shape)}: expected "
                          f"(V, {n_tiles}) and ({n_tiles},)")
+    vmax, nb = ids.shape[0], trif.shape[0]
+    offsets = item_offsets(counts, ovf, nb, vmax, item_panels or ITEM_PANELS)
+    queue = torch.zeros(1, dtype=torch.int32, device=device)
+    best = (torch.empty(n_tiles * 1024, dtype=torch.int64, device=device)
+            if mode in PACKED_MODES else None)
     t = torch.empty(n_tiles * 1024, dtype=torch.float32, device=device)
     slot = torch.empty(n_tiles * 1024, dtype=torch.int32, device=device)
     _launch("raycast_probe_call", device, f.data_ptr(), ids.data_ptr(),
-            counts.data_ptr(), ovf.data_ptr(), trif.data_ptr(), t.data_ptr(),
-            slot.data_ptr(), n_tiles, ids.shape[0], trif.shape[0],
-            MODES.index(mode), float(t_init))
+            counts.data_ptr(), ovf.data_ptr(), trif.data_ptr(), offsets.data_ptr(),
+            queue.data_ptr(), None if best is None else best.data_ptr(), t.data_ptr(),
+            slot.data_ptr(), n_tiles, vmax, nb, MODES.index(mode), float(t_init), lib=lib)
     return t, slot
 
 
-def raycast_probe_grid_cuda(f, ids_flat, counts, trif, cap: int, t_init: float):
+def raycast_probe_grid_cuda(f, ids_flat, counts, trif, cap: int, t_init: float, *,
+                            lib=None):
     """Launch ``probe_grid_kernel`` (csrc/raycast_probe.cu): one CUDA block
     per (tile, candidate) step, merged with 64-bit atomicMin.
 
     f (T*1024, 10) float32; ids_flat (T*cap,) and counts (T,) int32 with
-    counts <= cap; trif (NB, 10, 640) float32.  Returns (t, slot).
+    counts <= cap; trif (NB, 10, 640) float32.  Returns (t, slot).  ``lib``:
+    another build of the source, uncounted (``kernel_probe --against``).
     """
     device = f.device
     if device.type != "cuda":
@@ -444,18 +465,19 @@ def raycast_probe_grid_cuda(f, ids_flat, counts, trif, cap: int, t_init: float):
     slot = torch.empty(n_tiles * 1024, dtype=torch.int32, device=device)
     _launch("raycast_probe_grid", device, f.data_ptr(), ids_flat.data_ptr(),
             counts.data_ptr(), trif.data_ptr(), best.data_ptr(), t.data_ptr(),
-            slot.data_ptr(), n_tiles, int(cap), float(t_init))
+            slot.data_ptr(), n_tiles, int(cap), float(t_init), lib=lib)
     return t, slot
 
 
 def raycast_probe_flat_cuda(f, pair_tiles, pair_blocks, n_tiles: int, trif,
-                            t_init: float):
+                            t_init: float, *, lib=None):
     """Launch ``probe_flat_kernel`` (csrc/raycast_probe.cu): one CUDA block
     per chunk of the flat (tile, block) pair list, merged with 64-bit
     atomicMin.
 
     f (T*1024, 10) float32; pair_tiles (P,) ascending and pair_blocks (P,)
-    int32; trif (NB, 10, 640) float32.  Returns (t, slot).
+    int32; trif (NB, 10, 640) float32.  Returns (t, slot).  ``lib`` as for
+    the grid.
     """
     device = f.device
     if device.type != "cuda":
@@ -470,5 +492,5 @@ def raycast_probe_flat_cuda(f, pair_tiles, pair_blocks, n_tiles: int, trif,
     slot = torch.empty(n_tiles * 1024, dtype=torch.int32, device=device)
     _launch("raycast_probe_flat", device, f.data_ptr(), pair_tiles.data_ptr(),
             pair_blocks.data_ptr(), trif.data_ptr(), best.data_ptr(), t.data_ptr(),
-            slot.data_ptr(), int(n_tiles), pair_tiles.shape[0], float(t_init))
+            slot.data_ptr(), int(n_tiles), pair_tiles.shape[0], float(t_init), lib=lib)
     return t, slot

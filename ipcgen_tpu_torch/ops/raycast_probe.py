@@ -59,6 +59,10 @@ MODES = ("full", "full4", "recip", "recip4", "bf16", "quad", "dmaonly",
          "dmaonly4", "matmul", "quadfloor", "smallcarry4", "nodma")
 RESULT_MODES = ("full", "full4", "recip", "recip4", "bf16", "quad")
 FLOOR_MODES = ("dmaonly", "dmaonly4", "matmul", "quadfloor", "smallcarry4")
+# Modes whose per-ray result is a (t, slot) hit: the kernel merges their
+# work items by a 64-bit minimum of (t bits << 32) | slot.
+PACKED_MODES = RESULT_MODES + ("nodma",)
+ITEM_PANELS = 8  # call's panels per work item (kItemPanels of the .cu)
 EPS_T_BITS = int(np.float32(1e-6).view(np.int32))  # t > 1e-6, flat's int domain
 EPS_DEN_BITS = int(np.float32(1e-9).view(np.int32))  # |t_den| > 1e-9
 _INT32_MAX = 2**31 - 1
@@ -110,6 +114,38 @@ def prepare_probe(origins, dirs, tri_data, block_lo, block_hi, *, gmax: int = 48
         ovf=ovf.to(torch.int32), n_tiles=n // TILE, nb=tri_data.shape[0],
         t_init=T_INIT,
     )
+
+
+def walk_trips(counts: torch.Tensor, ovf: torch.Tensor, nb: int, vmax: int = VMAX):
+    """The panels each tile's ``call`` walk covers: ``nb`` when it
+    overflowed, else min(counts, vmax).  (T,) int32."""
+    return torch.where(ovf != 0, nb, torch.clamp(counts, max=vmax)).to(torch.int32)
+
+
+def item_offsets(counts: torch.Tensor, ovf: torch.Tensor, nb: int, vmax: int = VMAX,
+                 k: int = ITEM_PANELS) -> torch.Tensor:
+    """``call``'s work items per tile, scanned: tile t walks its trip
+    (``walk_trips``) in ceil(trip / k) items, numbered offsets[t] ..
+    offsets[t+1] - 1.  (T+1,) int32, on the inputs' device; no host read."""
+    trips = walk_trips(counts, ovf, nb, vmax)
+    offsets = torch.zeros(counts.shape[0] + 1, dtype=torch.int32, device=counts.device)
+    offsets[1:] = torch.cumsum((trips + k - 1) // k, 0)
+    return offsets
+
+
+def probe_items(counts: torch.Tensor, ovf: torch.Tensor, nb: int, k: int = ITEM_PANELS,
+                vmax: int = VMAX):
+    """The kernel's schedule (``probe_call_kernel``): item i walks list
+    positions starts[i] .. stops[i] - 1 of tile tiles[i], at most ``k`` of
+    them; a tile's items are consecutive and in list order.  Returns
+    (offsets (T+1,) as ``item_offsets``, tiles, starts, stops (I,) int64)."""
+    offsets = item_offsets(counts, ovf, nb, vmax, k)
+    per_tile = (offsets[1:] - offsets[:-1]).long()
+    tiles = torch.repeat_interleave(torch.arange(counts.shape[0], device=counts.device),
+                                    per_tile)
+    trips = walk_trips(counts, ovf, nb, vmax).long()
+    starts = (torch.arange(tiles.numel(), device=counts.device) - offsets[tiles]) * k
+    return offsets, tiles, starts, torch.minimum(starts + k, trips[tiles])
 
 
 def grid_ids(ids: torch.Tensor, counts: torch.Tensor, cap: int):

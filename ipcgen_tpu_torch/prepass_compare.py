@@ -26,8 +26,8 @@ seed 0, patch order) as ``prepare_pairs`` hands them to the prepass
 - the time of each, with CUDA events, in turns
   (``variants.time_in_turns``).
 
-With ``--ptxas`` it also compiles the port's pair source with ``-Xptxas -v``
-and reports each kernel's registers, shared memory and spill bytes.
+With ``--ptxas`` it also reports each kernel of the port's pair source's
+registers, shared memory and spill bytes (``variants.ptxas_report``).
 
 Prints one JSON object (and writes it to ``--out``).  Needs a CUDA device.
 """
@@ -37,8 +37,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
-import subprocess
 from pathlib import Path
 
 import torch
@@ -87,35 +85,6 @@ def run_other(other, o, d, boxes, group: int, t_max: float, n_sub: int):
             raise RuntimeError(lib.raycast_pairs_error_string(rc).decode())
 
     return _kernels._prepass(o, d, *boxes, group, t_max, n_sub, counting=False, launch=launch)
-
-
-def ptxas_report() -> dict:
-    """Registers, shared memory and spills of each kernel of the pair source
-    (``nvcc -Xptxas -v`` with the port's flags)."""
-    from ipcgen_tpu_torch.ops import _kernels
-
-    out_dir = _kernels.BUILD_DIR / "compare"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    cmd = _kernels.nvcc_command("raycast_pairs", out_dir / "libptxas.so", _kernels._nvcc())
-    res = subprocess.run(cmd[:1] + ["-Xptxas", "-v"] + cmd[1:], check=True,
-                         capture_output=True, text=True)
-    report, current = {}, None
-    for line in (res.stdout + res.stderr).splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            current = m.group(1)
-            report[current] = {}
-        elif current and "spill" in line:
-            nums = re.findall(r"(\d+) bytes (spill stores|spill loads)", line)
-            report[current].update({kind.replace(" ", "_"): int(n) for n, kind in nums})
-        elif current and "Used" in line:
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                report[current]["registers"] = int(m.group(1))
-            m = re.search(r"(\d+) bytes smem", line)
-            if m:
-                report[current]["smem_bytes"] = int(m.group(1))
-    return report
 
 
 def profile_inputs(device):
@@ -213,7 +182,7 @@ def main(argv=None) -> int:
     others = {name: build_other(name, src)
               for name, src in variants.against(args.against).items()}
     if args.ptxas:
-        out["ptxas"] = ptxas_report()
+        out["ptxas"] = variants.ptxas_report("raycast_pairs")
     asset, inputs = profile_inputs(device)
     out["blocks"] = asset.num_blocks
     for name, p in inputs:

@@ -1,7 +1,7 @@
 """Build other versions of a kernel source and time them against the port's.
 
-Shared by ``culled_compare`` and ``prepass_compare``.  A version given as
-``--against NAME=SRC.cu`` is compiled as the port compiles
+Shared by ``culled_compare``, ``prepass_compare`` and ``kernel_probe``.  A
+version given as ``--against NAME=SRC.cu`` is compiled as the port compiles
 ``csrc/<source>.cu`` (``_kernels.NVCC_FLAGS`` and the source's own flags)
 into ``build/ipcgen_tpu_torch/compare/lib<NAME>.so``.  Versions are timed
 with CUDA events in turns: the port, each other version, each other version
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 from pathlib import Path
 
@@ -43,6 +44,38 @@ def build_variant(name: str, src: Path, source: str) -> ctypes.CDLL:
     error_string.restype = ctypes.c_char_p
     error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def ptxas_report(source: str, src: Path | None = None) -> dict:
+    """Registers, shared memory and spill bytes of each kernel of
+    ``csrc/<source>.cu``, or of ``src`` built as that source is (``nvcc
+    -Xptxas -v`` with the port's flags), by mangled name."""
+    from ipcgen_tpu_torch.ops import _kernels
+
+    out_dir = _kernels.BUILD_DIR / "compare"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cmd = _kernels.nvcc_command(source, out_dir / f"libptxas_{source}.so", _kernels._nvcc())
+    if src is not None:
+        cmd[-1] = str(src)
+    res = subprocess.run(cmd[:1] + ["-Xptxas", "-v"] + cmd[1:], check=True,
+                         capture_output=True, text=True)
+    report, current = {}, None
+    for line in (res.stdout + res.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = m.group(1)
+            report[current] = {}
+        elif current and "spill" in line:
+            nums = re.findall(r"(\d+) bytes (spill stores|spill loads)", line)
+            report[current].update({kind.replace(" ", "_"): int(n) for n, kind in nums})
+        elif current and "Used" in line:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report[current]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                report[current]["smem_bytes"] = int(m.group(1))
+    return report
 
 
 def time_ms(fn, reps: int = REPS) -> float:

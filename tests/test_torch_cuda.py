@@ -441,16 +441,34 @@ def test_culled_wrapper_rejects_bad_inputs(cuda_device):
         _kernels.raycast_culled_cuda(*good[:7], 1, 1e30)
 
 
-def probe_case(device, overflow: bool):
-    """The probe's inputs on a 9,984-triangle room and 64 tiles of its rays;
-    with ``overflow`` every seventh tile walks every block."""
+PROBE_CASES = ("lists", "every_seventh_overflowed", "all_overflowed", "counts_0_k_k1")
+
+
+def probe_case(device, case: str):
+    """The probe's inputs on a 9,984-triangle room and 64 tiles of its rays:
+    the prepass's lists; every seventh tile, or every tile, walking every
+    block (78, in items of ``ITEM_PANELS``); or the lists cut to 0, K and
+    K + 1 blocks in turn (K = ``ITEM_PANELS``: no item, one whole item, a
+    whole item and one of a single panel; a shorter list keeps its length).
+    The cut lists stay the rays' own candidates: on arbitrary blocks most
+    hits are near-ties of coplanar triangles, where ``recip``'s approximate
+    reciprocal picks the other one."""
     verts, tris = synthetic_room(10_000)
     asset = build_scene_asset(verts, tris, device=device)
     origins, dirs = patch_ordered_scan_rays(2, r=32_768)
     p = rp.prepare_probe(t_(origins).to(device), t_(dirs).to(device), asset.tri_data,
                          asset.block_lo, asset.block_hi)
-    if overflow:
+    if case == "every_seventh_overflowed":
         p["ovf"][::7] = 1
+    elif case == "all_overflowed":
+        p["ovf"][:] = 1
+    elif case == "counts_0_k_k1":
+        k, n_tiles = rp.ITEM_PANELS, p["n_tiles"]
+        cut = torch.tensor([0, k, k + 1], dtype=torch.int32,
+                           device=device)[torch.arange(n_tiles, device=device) % 3]
+        p["counts"] = torch.minimum(p["counts"], cut).contiguous()
+        p["ovf"] = torch.zeros_like(p["counts"])
+        assert all(int((p["counts"] == c).sum()) >= 5 for c in (0, k, k + 1))
     return p
 
 
@@ -464,11 +482,11 @@ def check_probe(name, kernel, plain):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("overflow", [False, True])
-def test_probe_kernels_match_plain_on_card(cuda_device, overflow):
+@pytest.mark.parametrize("case", PROBE_CASES)
+def test_probe_kernels_match_plain_on_card(cuda_device, case):
     from ipcgen_tpu_torch.ops import _kernels
 
-    p = probe_case(cuda_device, overflow)
+    p = probe_case(cuda_device, case)
     call = (p["f"], p["ids"], p["counts"], p["ovf"])
     outs = {}
     for mode in rp.MODES:
@@ -480,7 +498,8 @@ def test_probe_kernels_match_plain_on_card(cuda_device, overflow):
     for mode in ("recip", "recip4"):
         got = rp.agreement(*outs[mode], *outs["full"])
         assert got["same_slot"] >= 0.9999 and got["max_rel"] <= 1e-6, (mode, got)
-    assert (outs["full"][1] >= 0).float().mean().item() > 0.9
+    if case != "counts_0_k_k1":  # cut lists leave rays without a hit
+        assert (outs["full"][1] >= 0).float().mean().item() > 0.9
     ids_flat, counts = rp.grid_ids(p["ids"], p["counts"], 8)
     check_probe("grid8", _kernels.raycast_probe_grid_cuda(p["f"], ids_flat, counts,
                                                           p["trif"], 8, rp.T_INIT),

@@ -211,6 +211,86 @@ def test_floor_modes_plain(scene, mode):
         assert hit.any() and np.all(s.numpy()[hit] % rp.TB < rp.TB)
 
 
+@pytest.mark.parametrize("k", [2, rp.ITEM_PANELS])
+def test_probe_items_cover_each_walk_once(k):
+    """The kernel's schedule: every tile's walk (trip 0, k - 1, k, k + 1, an
+    overflowed tile, a list longer than vmax) is covered once, in list order,
+    by items of 1..k panels; the kernel's binary search finds each item's
+    tile past the tiles that have none."""
+    nb, vmax = 5 * k, 3 * k
+    counts = torch.tensor([0, k - 1, k, k + 1, 2, 4 * k, 0, k + 3], dtype=torch.int32)
+    ovf = torch.tensor([0, 0, 0, 0, 1, 0, 0, 0], dtype=torch.int32)
+    trips = [0, k - 1, k, k + 1, nb, vmax, 0, k + 3]
+    assert rp.walk_trips(counts, ovf, nb, vmax).tolist() == trips
+    offsets, tiles, starts, stops = rp.probe_items(counts, ovf, nb, k, vmax)
+    assert offsets.dtype == torch.int32 and offsets.tolist()[0] == 0
+    assert torch.equal(offsets, rp.item_offsets(counts, ovf, nb, vmax, k))
+    assert offsets[-1] == len(tiles) == sum(-(-t // k) for t in trips)
+    assert torch.all(tiles[1:] >= tiles[:-1])  # a tile's items are consecutive
+    n = stops - starts
+    assert torch.all((n >= 1) & (n <= k))
+    for t, trip in enumerate(trips):
+        mine = tiles == t
+        assert int(mine.sum()) == offsets[t + 1] - offsets[t]
+        walked = [p for a, b in zip(starts[mine].tolist(), stops[mine].tolist())
+                  for p in range(a, b)]
+        assert walked == list(range(trip))
+    found = torch.searchsorted(offsets[:-1], torch.arange(len(tiles), dtype=torch.int32),
+                               right=True) - 1
+    assert torch.equal(found, tiles)
+
+
+def merge_items(mode, parts):
+    """The kernel's merge of its items' results: a 64-bit minimum of
+    (t bits << 32) | slot over hits for the packed modes, int32 minima of t's
+    bits (and of the product floors' slot) for the floors."""
+    init = int(np.float32(T_MAX).view(np.int32))
+    n = parts[0][0].shape[0]
+    if mode in rp.PACKED_MODES:
+        miss = (init << 32) | 0xFFFFFFFF
+        best = torch.full((n,), miss, dtype=torch.int64)
+        for t, s in parts:
+            packed = (t.view(torch.int32).long() << 32) | s.long()
+            best = torch.minimum(best, torch.where(s >= 0, packed, torch.full_like(best, miss)))
+        hit = best != miss
+        return (torch.where(hit, (best >> 32).to(torch.int32).view(torch.float32),
+                            torch.full((n,), T_MAX)),
+                torch.where(hit, (best & 0xFFFFFFFF).to(torch.int32),
+                            torch.full((n,), -1, dtype=torch.int32)))
+    key = torch.full((n,), init, dtype=torch.int32)
+    slot = torch.full((n,), {"smallcarry4": 0, "matmul": rp._INT32_MAX,
+                             "quadfloor": rp._INT32_MAX}.get(mode, -1), dtype=torch.int32)
+    for t, s in parts:
+        key = torch.minimum(key, t.view(torch.int32))
+        if mode in ("matmul", "quadfloor"):
+            slot = torch.minimum(slot, s)
+    return key.view(torch.float32), slot
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("mode", rp.MODES)
+def test_items_walked_apart_merge_to_the_plain_result(scene, mode, k):
+    """Each of the kernel's items walked on its own and merged by the
+    kernel's rule gives the whole walk's bits, in every mode (tile 1
+    overflowed: it walks every block)."""
+    p = port_inputs(scene)
+    p["ovf"][1] = 1
+    trif = p["trif_bf16"] if mode == "bf16" else p["trif"]
+    _, tiles, starts, stops = rp.probe_items(p["counts"], p["ovf"], p["nb"], k,
+                                             p["ids"].shape[0])
+    assert int((stops - starts).max()) <= k and len(tiles) > p["n_tiles"]
+    parts = []
+    for tile, a, b in zip(tiles.tolist(), starts.tolist(), stops.tolist()):
+        pos = torch.arange(a, b)
+        blocks = pos if p["ovf"][tile] else p["ids"][pos, tile].long()
+        parts.append(rp._walk_plain(p["f"], p["n_tiles"], torch.full_like(pos, tile),
+                                    blocks, trif, mode, T_MAX))
+    t, s = merge_items(mode, parts)
+    want_t, want_s = rp.probe_call_plain(p["f"], p["ids"], p["counts"], p["ovf"], trif, mode)
+    assert torch.equal(t.view(torch.int32), want_t.view(torch.int32))
+    assert torch.equal(s, want_s)
+
+
 def test_product_floor_fma_emulation():
     """``_fma`` rounds once: fma(1 + 2^-12, 1 + 2^-12, -1) keeps the 2^-24
     term that a separate multiply would round away."""
@@ -228,6 +308,16 @@ def test_entry_point_on_the_cpu(capsys):
     assert set(summary["results"]) == {"full", "dmaonly", "grid4", "flat"}
     assert all(r["ms"] is None for r in summary["results"].values())
     assert summary["results"]["full"]["hit"] > 0.9
+    sched = summary["schedule"]
+    assert sched["item_panels"] == rp.ITEM_PANELS
+    assert sched["walked_panels"] == summary["results"]["full"]["pairs"]
+    assert sched["items"] == 2  # two tiles of 5 panels: one item each
+
+
+@pytest.mark.parametrize("flag", [["--against", "other=other.cu"], ["--ptxas"]])
+def test_build_comparisons_need_the_card(flag):
+    with pytest.raises(SystemExit, match="need a CUDA device"):
+        kernel_probe.main(["full", "--device", "cpu", *flag])
 
 
 @pytest.mark.parametrize("name, ok", [
@@ -264,6 +354,7 @@ def test_kernel_source_matches_the_plain_constants():
     assert f"constexpr int kTile = {rp.TILE};" in src
     assert f"constexpr int kThreads = {rp.THREADS};" in src
     assert f"constexpr int kTB = {rp.TB};" in src
+    assert f"constexpr int kItemPanels = {rp.ITEM_PANELS};" in src
     assert f"kEpsTBits = 0x{rp.EPS_T_BITS:08X};" in src
     assert f"kEpsDenBits = 0x{rp.EPS_DEN_BITS:08X};" in src
     assert "raycast_probe" in _kernels.SOURCES
