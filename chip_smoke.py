@@ -83,6 +83,24 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    ``obstacle_mask`` on the planning grid of the main room through the pair
    kernel must equal the brute oracle's mask on >= 99.9 % of cells.  Runs
    inside phase 4, after the two pair runs.
+9. the batch entry point (``phase_batch``): ``sim.simulator.main`` over a
+   reconstruction directory of two rooms, the main room (``Area_1_office_1``)
+   and ``synthetic_room(700_000, seed=1)`` (``Area_1_office_2``) with its own
+   600 k TLS room, BLK2GO, 20 requested waypoints, the asynchronous export,
+   both rooms' labels prewarmed (``prewarm_labels``).  Both rooms must
+   succeed, each must claim its prewarm, the pair prepass and the walk must
+   launch once a room (counts read after the last export drained), the
+   labels of each must pass the cKDTree check, and a second ``main`` must
+   skip both.  Each room's stage seconds and the rooms per hour are logged.
+10. the preprocess stage (``phase_preprocess``): ``preprocess_room`` on a
+   1,000,000-point synthetic room (the main room's surfaces, 2 mm noise,
+   0.5 % far outliers) with a dense and an occluded ``sparse50`` variant,
+   cold and warm; every injected outlier removed, the inlier mask within
+   99.9 % of a float64 cKDTree k-NN's, the grid k-NN's 20-NN means within
+   1.02x (mean) and 1.2x (p99) of the exact ones on 100 k points, and the
+   normals' |dot| against a float64 eigh of the same neighbour sets at a
+   median >= 0.9999.  The grid k-NN and the PCA are timed against their
+   bounds.  This stage is torch ops: it launches no hand kernel.
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the fp32 operations these rays need: the FMA
@@ -617,7 +635,8 @@ def phase_probe(device, asset) -> dict:
 # ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
-def check_labels(ply_path: Path, data_root: Path, n_sample: int = 100_000) -> float:
+def check_labels(ply_path: Path, data_root: Path, n_sample: int = 100_000,
+                 room: str = "office_1") -> float:
     from scipy.spatial import cKDTree
 
     from ipcgen_tpu_torch.io.ply import read_labeled_ply
@@ -626,7 +645,7 @@ def check_labels(ply_path: Path, data_root: Path, n_sample: int = 100_000) -> fl
     points, _colors, sem, ins = read_labeled_ply(ply_path)
     loader = S3DISAnnotationLoader(str(data_root), verbose=False)
     ref_pts, ref_sem, ref_ins = loader.create_labeled_pointcloud_with_instances(
-        loader.load_room_annotations("Area_1", "office_1"))
+        loader.load_room_annotations("Area_1", room))
     rng = np.random.default_rng(0)
     pick = rng.choice(len(points), size=min(n_sample, len(points)), replace=False)
     _, nn = cKDTree(np.asarray(ref_pts, np.float64)).query(
@@ -838,7 +857,9 @@ def phase_main_path(device, work: Path, card: str):
     occupancy = check_occupancy(asset, v, t)
     culled = phase_culled_main_path(device, work, card, mesh_path, data_root,
                                     asset, runs["blk2go"])
-    return runs, culled, occupancy
+    del asset
+    batch = phase_batch(device, work, card, mesh_path, data_root)
+    return runs, culled, occupancy, batch
 
 
 def check_occupancy(asset, v, t) -> dict:
@@ -993,6 +1014,223 @@ def phase_culled_main_path(device, work: Path, card: str, mesh_path: Path,
                 full_scan_bound=full_bound)
 
 
+# ---------------------------------------------------------------------------
+# The batch entry point (sim.simulator.main)
+# ---------------------------------------------------------------------------
+def phase_batch(device, work: Path, card: str, mesh_path: Path, data_root: Path) -> dict:
+    """``sim.simulator.main`` over a reconstruction directory of two rooms,
+    with both rooms' labels prewarmed and the asynchronous export; then
+    again, when both rooms must be skipped."""
+    from ipcgen_tpu_torch.containers.mesh import TriMesh
+    from ipcgen_tpu_torch.containers.sim_scene import claim_prewarmed_labels, prewarm_labels
+    from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.sim.simulator import main as batch_main
+    from ipcgen_tpu_torch.utils.device import sync
+    from ipcgen_tpu_torch.utils.synthetic import synthetic_room, write_s3dis_room
+
+    t0 = time.time()
+    recon = work / "recon"
+    rooms = {"Area_1_office_1": "office_1", "Area_1_office_2": "office_2"}
+    for scene in rooms:
+        (recon / scene).mkdir(parents=True)
+    shutil.copyfile(mesh_path, recon / "Area_1_office_1" / "mesh_dense.ply")
+    v, t = synthetic_room(TRIANGLES_MAIN, seed=1)
+    TriMesh(vertices=v, triangles=t).save(recon / "Area_1_office_2" / "mesh_dense.ply")
+    n_tls = write_s3dis_room(data_root / "Area_1" / "office_2", TLS_POINTS, seed=1)
+    log(f"[batch] second room {len(t)} triangles (seed 1), TLS {n_tls} points, written "
+        f"in {time.time() - t0:.1f} s")
+
+    out = work / "batch_out"
+    kw = dict(num_waypoints=20, output_base_dir=str(out), use_blk2go=True,
+              s3dis_data_root=str(data_root), async_export=True, device=device)
+    prewarmed = {room: prewarm_labels(str(data_root), "Area_1", room, device=device)
+                 for room in rooms.values()}
+    for k in _kernels.LAUNCHES:
+        _kernels.LAUNCHES[k] = 0
+    t0 = time.time()
+    res = batch_main(str(recon), **kw)  # returns after the last export drained
+    sync(device)
+    wall = time.time() - t0
+    launches = dict(_kernels.LAUNCHES)
+    done = [name for name, _ in res["successful"]]
+    log(f"[batch] {len(done)} done, {len(res['failed'])} failed {res['failed']}, "
+        f"{wall:.2f} s wall, main's total {res['total_time']:.2f} s, launches {launches}")
+    require(done == list(rooms) and not res["failed"], f"batch: {res}")
+    n = len(rooms)
+    require(launches["raycast_pairs"] == n and launches["raycast_pairs_prepass"] == n
+            and launches["raycast_culled"] == 0,
+            f"batch: one pair prepass and one walk a room expected: {launches}")
+    per_room = {}
+    for name, sc in res["successful"]:
+        room = rooms[name]
+        require(sc.label_prefetch is prewarmed[room], f"batch: {name} did not claim its prewarm")
+        require(claim_prewarmed_labels(str(data_root), "Area_1", room, device=device) is None,
+                f"batch: {name}'s prewarm is still registered")
+        ply = out / name / "combined_pointcloud_with_label.ply"
+        require(ply.is_file(), f"batch: {name} labeled PLY missing")
+        agree = check_labels(ply, data_root, room=room)
+        stages = {k: round(float(x), 4) for k, x in sorted(sc.profile.items())}
+        log(f"[batch] {name}: {len(sc.frames)} frames, {sc.get_total_points()} points, labels "
+            f"agree with cKDTree 1-NN on {agree:.5f}; prewarm claimed; stage seconds on "
+            f"{card}: {json.dumps(stages)}")
+        require(agree >= 0.999, f"batch: {name} label agreement {agree}")
+        per_room[name] = dict(frames=len(sc.frames), points=sc.get_total_points(),
+                              label_agree=agree, stages=stages)
+    again = batch_main(str(recon), **kw)
+    require(sorted(again["skipped"]) == list(rooms) and not again["successful"]
+            and not again["failed"], f"batch rerun did not skip both rooms: {again}")
+    rooms_per_hour = n / res["total_time"] * 3600
+    log(f"[batch] rerun skipped {again['skipped']}; {res['total_time'] / n:.3f} s a room, "
+        f"{rooms_per_hour:.1f} rooms/hour on {card}")
+    return dict(wall_s=wall, total_time_s=res["total_time"], s_per_room=res["total_time"] / n,
+                rooms_per_hour=rooms_per_hour, launches=launches, rooms=per_room)
+
+
+# ---------------------------------------------------------------------------
+# The preprocess stage
+# ---------------------------------------------------------------------------
+PRE_POINTS = 1_000_000
+PRE_SAMPLE = 100_000
+PRE_VARIANTS = [{"name": "dense", "keep_ratio": 1.0, "occlusion": False},
+                {"name": "sparse50", "keep_ratio": 0.5, "occlusion": True}]
+
+
+def phase_preprocess(device, work: Path, card: str) -> dict:
+    """``preprocess_room`` on a 1 M-point synthetic S3DIS room (2 mm noise,
+    0.5 % far outliers) with a dense and an occluded sparse50 variant, held
+    to a float64 reference on the host; the grid k-NN and the PCA timed
+    against their bounds.  No hand kernel runs here: the stage is torch ops."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from ipcgen_tpu_torch.ops import grid_nn, normals as nrm, outliers
+    from ipcgen_tpu_torch.preprocess.loader import DEFAULT_PREPROCESSING, S3DISLoader, \
+        preprocess_room
+    from ipcgen_tpu_torch.utils.synthetic import OUTLIER_RGB, write_s3dis_room
+
+    t0 = time.time()
+    root = work / "pre_s3dis"
+    n = write_s3dis_room(root / "Area_1" / "office_1", PRE_POINTS, seed=0, noise_std=0.002,
+                         outlier_frac=0.005)
+    log(f"[preprocess] room of {n} points (2 mm noise, 0.5 % far outliers) written in "
+        f"{time.time() - t0:.1f} s")
+    cfg = {"preprocessing": dict(DEFAULT_PREPROCESSING)}
+    runs = []
+    for turn in ("cold", "warm"):
+        t0 = time.time()
+        room = preprocess_room(str(root), "Area_1", "office_1", cfg,
+                               output_dir=str(work / "pre_out"),
+                               sparsity_experiments=PRE_VARIANTS, seed=0, device=device)
+        wall = time.time() - t0
+        sizes = {k: len(x["points"]) for k, x in room["variants"].items()}
+        log(f"[preprocess] {turn}: {len(room['points'])} points kept, variants {sizes}, "
+            f"{wall:.3f} s wall; spans on {card}: {json.dumps(room['spans'])}")
+        runs.append(dict(turn=turn, wall_s=wall, preprocess_time=room["preprocess_time"],
+                         spans=room["spans"], variants=sizes))
+    require(sizes["sparse50"] > nrm.GRID_MIN_N,
+            f"sparse50 left {sizes['sparse50']} points: not on the grid path")
+    for name, var in room["variants"].items():
+        nv = var["normals"]
+        require(nv.shape == var["points"].shape and np.isfinite(nv).all()
+                and np.allclose(np.linalg.norm(nv, axis=1), 1.0, atol=1e-3),
+                f"preprocess: {name} normals not unit")
+
+    points, colors, _ = S3DISLoader(str(root)).load_room_data("Area_1", "office_1")
+    is_out = np.all(np.round(colors * 255) == OUTLIER_RGB, axis=1)
+    pts32 = points.astype(np.float32)
+    p = cfg["preprocessing"]
+    nb, k_join, cap = p["outlier_nb_neighbors"], max(p["outlier_nb_neighbors"] + 1,
+                                                    p["normal_max_nn"]), 48
+    mask, normals = outliers.remove_outliers_and_estimate_normals(pts32, device=device)
+    require(np.array_equal(points[mask], room["points"]),
+            "preprocess_room kept other points than the fused op")
+    require(not mask[is_out].any(), f"{int(mask[is_out].sum())} of {int(is_out.sum())} "
+                                    "injected outliers kept")
+    out_color = np.all(np.round(room["variants"]["dense"]["colors"] * 255) == OUTLIER_RGB,
+                       axis=1)
+    require(not out_color.any(), "an outlier's colour is in the dense variant")
+
+    # The float64 reference: exact k-NN means and the same threshold rule.
+    t0 = time.time()
+    d_ref, _ = cKDTree(points).query(points, k=nb + 1, workers=-1)
+    mean_ref = d_ref[:, 1:].mean(axis=1)
+    mask_ref = mean_ref <= mean_ref.mean() + p["outlier_std_ratio"] * mean_ref.std()
+    mask_agree = float((mask == mask_ref).mean())
+    ref_s = time.time() - t0
+
+    # The grid k-NN of the fused join, timed, and its means on a sample.
+    pts_dev = torch.from_numpy(pts32).to(device)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    idx_d, d2_d = grid_nn.knn_grid(pts_dev, pts32, k=k_join, device_arrays=True,
+                                   device=device)
+    torch.cuda.synchronize()
+    knn_wall = time.time() - t0
+    cell = grid_nn._choose_cell_size(pts32, max(cap, k_join))
+    _, grid = grid_nn._grid_tensors(pts32, cell, device)
+    core_ms = time_ms(lambda: grid_nn._grid_knn_core(pts_dev, *grid, cap, k_join, 4096), 3)
+    # Two bounds: the candidates' gather (every query reads 8 x cap slots of
+    # 12 B), and each input read once and each output written once
+    # (queries, bucket-sorted refs, starts; int64 ids and float32 d2).
+    gather_bytes = n * 8 * cap * 12
+    knn_bound = bound(gather_bytes, 0.0)
+    knn_io_bound = bound(n * 12 * 2 + grid[1].numel() * 4 + n * k_join * 12, 0.0)
+    rng = np.random.default_rng(0)
+    sample = rng.choice(n, PRE_SAMPLE, replace=False)
+    d2_s = d2_d[torch.from_numpy(sample).to(device)].cpu().numpy()
+    grid_mean = np.sqrt(d2_s[:, 1:nb + 1]).mean(axis=1)
+    fin = np.isfinite(grid_mean)
+    ratio = grid_mean[fin] / np.maximum(mean_ref[sample][fin], 1e-12)
+
+    # PCA: the fused op's normals against a float64 eigh of the same sets.
+    mean_d = torch.sqrt(d2_d[:, 1:nb + 1]).mean(dim=1)
+    _, threshold = outliers._threshold_mask(mean_d.cpu().numpy(), p["outlier_std_ratio"])
+    thr = torch.tensor(np.float32(threshold), device=device)
+    pca_ms = time_ms(lambda: outliers._fused_normals(pts_dev, idx_d, d2_d, mean_d, thr,
+                                                     p["normal_max_nn"],
+                                                     p["normal_search_radius"]), 3)
+    max_nn, r = p["normal_max_nn"], p["normal_search_radius"]
+    # Inputs once (points, the first max_nn ids and d2 of each row, the
+    # means), normals out; about 30 flops a neighbour (centring, masks, the
+    # six covariance products and sums).
+    pca_bound = bound(n * 12 + n * max_nn * (8 + 4) + n * 4 + n * 12,
+                      n * max_nn * 30.0, PEAK_FP32)
+    inl = sample[mask[sample]]
+    sel = torch.from_numpy(inl).to(device)
+    idx_s = idx_d[sel, :max_nn].cpu().numpy()
+    valid = (d2_d[sel, :max_nn] <= r * r).cpu().numpy() & mask[idx_s]
+    nbh = points[idx_s]
+    w = valid[..., None].astype(np.float64)
+    cnt = np.maximum(w.sum(axis=1), 1.0)
+    c = (nbh - ((nbh * w).sum(axis=1) / cnt)[:, None, :]) * w
+    vals, vecs = np.linalg.eigh(np.einsum("nki,nkj->nij", c, c) / cnt[:, :, None])
+    full = np.zeros((n, 3), np.float32)
+    full[mask] = normals
+    dot = np.abs(np.sum(full[inl].astype(np.float64) * vecs[:, :, 0], axis=1))
+    res = dict(points=n, injected_outliers=int(is_out.sum()), kept=int(mask.sum()),
+               mask_agree=mask_agree, reference_s=ref_s,
+               knn_ratio_mean=float(ratio.mean()), knn_ratio_p99=float(np.percentile(ratio, 99)),
+               knn_finite=float(fin.mean()), normals_dot_median=float(np.median(dot)),
+               normals_dot_p01=float(np.percentile(dot, 1)), normals_sample=int(len(inl)),
+               knn_grid_wall_s=knn_wall, knn_core_ms=core_ms, knn_cell_m=float(cell),
+               knn_gather_bound_ms=knn_bound["bound_ms"], knn_gather_bytes=gather_bytes,
+               knn_io_bound_ms=knn_io_bound["bound_ms"],
+               pca_ms=pca_ms, pca_bound_ms=pca_bound["bound_ms"],
+               pca_bound_by=pca_bound["bound_by"], runs=runs, card=card)
+    log(f"[preprocess] {json.dumps(res)}")
+    log(f"[preprocess] grid k-NN (k {k_join}, cap {cap}, {n} queries): core {core_ms:.3f} ms "
+        f"against its gather bound {knn_bound['bound_ms']:.3f} ms ({gather_bytes / 1e9:.2f} GB "
+        f"at 3.35 TB/s), {core_ms / knn_bound['bound_ms']:.1f}x (inputs and outputs once: "
+        f"{knn_io_bound['bound_ms']:.3f} ms); with the host grid build {knn_wall:.3f} s; "
+        f"PCA {pca_ms:.3f} ms against {pca_bound['bound_ms']:.3f} ms "
+        f"({pca_bound['bound_by']}); on {card}")
+    require(mask_agree >= 0.999, f"preprocess: inlier mask agrees {mask_agree} < 0.999")
+    require(res["knn_ratio_mean"] < 1.02 and res["knn_ratio_p99"] < 1.2,
+            f"preprocess: grid k-NN means off the exact ones: {res}")
+    require(res["normals_dot_median"] >= 0.9999, f"preprocess: normals {res}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1029,9 +1267,12 @@ def main() -> int:
     del asset
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        runs, culled, occupancy = phase_main_path(device, work, card)
+        runs, culled, occupancy, batch = phase_main_path(device, work, card)
+        preprocess = phase_preprocess(device, work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    log(f"[summary] batch {json.dumps({k: v for k, v in batch.items() if k != 'rooms'})}; "
+        f"preprocess warm spans {json.dumps(preprocess['runs'][-1]['spans'])}")
 
     launches = sum(r["launches"]["raycast_pairs"] for r in runs.values())
     prepass_launches = sum(r["launches"]["raycast_pairs_prepass"] for r in runs.values())

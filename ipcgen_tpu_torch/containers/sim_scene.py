@@ -17,8 +17,9 @@ The JAX package swallows every exception on the label path and falls back to
 default labels.  Here a failure propagates: a broken file, grid or kernel can
 never turn into a labeled PLY full of default labels.  Default labels remain
 only for a scene without annotation data (no data root, area or room, or a
-room with no annotation rows), as in the reference.  The batch drivers'
-prewarm registry (``prewarm_labels``) is not ported with them yet.
+room with no annotation rows), as in the reference.  A batch run can
+start a room's prefetch ahead of its sim stage (``prewarm_labels``); the
+simulator's ``load_scene`` claims it (``claim_prewarmed_labels``).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +42,7 @@ from ipcgen_tpu_torch.ops.grid_nn import LabelGrid
 from ipcgen_tpu_torch.ops.knn import nearest_neighbor_indices
 from ipcgen_tpu_torch.semantic.annotations import S3DISAnnotationLoader, S3DISColorEncoder
 from ipcgen_tpu_torch.utils import native
+from ipcgen_tpu_torch.utils.device import device_or_card
 from ipcgen_tpu_torch.utils.json_utils import NumpyEncoder
 from ipcgen_tpu_torch.utils.viridis import viridis_rgb
 
@@ -227,6 +229,38 @@ class LabelPrefetch:
         if self._error is not None:
             raise self._error
         return self._data
+
+
+_prewarm_registry: Dict[Tuple[str, str, str, str], LabelPrefetch] = {}
+
+
+def _prewarm_key(s3dis_data_root, area, room, device):
+    device = device_or_card(device)
+    return (str(s3dis_data_root), str(area), str(room), str(device)), device
+
+
+def prewarm_labels(s3dis_data_root, area, room, *, device=None) -> Optional[LabelPrefetch]:
+    """Start a room's label prefetch on ``device`` (None: the card) ahead of
+    its sim stage, so the annotation parse, colour join and grid build hide
+    behind earlier work (the recon stage, or the previous room).
+    ``S3DISSimulator.load_scene`` claims it; a room prewarmed again before
+    it is claimed keeps its first prefetch.  None without a root, area or
+    room."""
+    if not s3dis_data_root or not area or not room:
+        return None
+    key, device = _prewarm_key(s3dis_data_root, area, room, device)
+    pf = _prewarm_registry.get(key)
+    if pf is None:
+        pf = LabelPrefetch(s3dis_data_root, area, room, device=device)
+        _prewarm_registry[key] = pf
+    return pf
+
+
+def claim_prewarmed_labels(s3dis_data_root, area, room, *, device=None):
+    """Pop the prefetch prewarmed for this room on ``device`` (None: the
+    card), or None when there is none."""
+    return _prewarm_registry.pop(_prewarm_key(s3dis_data_root, area, room, device)[0],
+                                 None)
 
 
 @dataclass

@@ -1,30 +1,62 @@
-"""Persistent slab grid for exact 1-NN label transfer.
+"""Grid-hashed neighbour searches: the persistent slab grid of the label
+transfer, and the CSR grid's 1-NN and k-NN.
 
-Port of ``ipcgen_tpu/ops/grid_nn.py``: ``LabelGrid`` (:450-586) and its core
-``_slab_nn_core`` (:335-405) in torch ops.  The host-side build
-(``_choose_cell_size`` :148-173, ``_build_slab_host`` :408-447) is copied,
-because that module imports jax at its top.
+Port of ``ipcgen_tpu/ops/grid_nn.py`` in torch ops: ``LabelGrid`` (:450-586)
+and its core ``_slab_nn_core`` (:335-405); ``nearest_neighbor_indices_grid``
+(:206-318) and ``knn_grid`` (:639-705) with their cores ``_grid_nn_core``
+(:71-136) and ``_grid_knn_core`` (:588-636).  The host-side builds
+(``_choose_cell_size`` :148-173, ``_build_hash_grid`` :176-203,
+``_build_slab_host`` :408-447) are copied, because that module imports jax
+at its top.
 
-Reference points are bucketed by a hash of their grid cell into a
-(T, cap, 3) slab table; a query gathers the 2x2x2 cells nearest to it.  An
-answer is accepted only when provably nearest: found within the query's
-margin to the searched window and with no visited bucket truncated.  Level 0
-uses cell h, level 1 cell 4h with a wider cap, and the residue goes to the
-exact 1-NN (``ops/knn.py``), so the returned index is always the true
+Reference points are bucketed by a hash of their grid cell; a query gathers
+the 2x2x2 cells nearest to it.  The slab grid stores each bucket as a dense
+(cap, 3) block, the CSR grid as a run of the bucket-sorted points.
+
+Slab grid: an answer is accepted only when provably nearest, found within
+the query's margin to the searched window with no visited bucket truncated.
+Level 0 uses cell h, level 1 cell 4h with a wider cap, and the residue goes
+to the exact 1-NN (``ops/knn.py``), so the returned index is always the true
 nearest neighbour.
+
+CSR 1-NN: the same acceptance at the fixed radius h/2, a retry at doubled
+cell size (twice at most), then the exact 1-NN.  CSR k-NN: the k nearest of
+the window's candidates, approximate by design (buckets beyond ``cap`` are
+truncated); a query with fewer than k finite candidates keeps +inf.
+
+The JAX package pads the query rows to bucketed lengths only so that its
+compiled programs are shared between rooms; padded rows are sliced off and
+never change a result, so the port searches the rows it is given.  Ties
+resolve as ``jax.lax.top_k`` and ``argmin`` resolve them there: to the first
+candidate position (the window offset, then the slot in the bucket).
 """
 
 from __future__ import annotations
 
 import time
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ipcgen_tpu_torch.ops.knn import nearest_neighbor_indices
+from ipcgen_tpu_torch.ops.knn import nearest_neighbor_indices, select_smallest
+from ipcgen_tpu_torch.utils.device import device_or_card
 
 # Spatial-hash primes; the hash wraps in uint32 identically on host and device.
 _P1, _P2, _P3 = 73856093, 19349663, 83492791
+_MAX_TABLE = 1 << 22  # 4M buckets: the starts table stays <= 16 MB int32
+# Candidates gathered per chunk of queries: the chunk has
+# max(q_block, _CHUNK_CANDIDATES // (8 * cap)) rows.
+_CHUNK_CANDIDATES = 1 << 24
+
+
+def _bucket_len(n: int, granularity: int = 4, minimum: int = 16) -> int:
+    """The JAX package's bucketed length for ``n`` rows (kept for callers that
+    size buffers as it does; the port's searches take any length)."""
+    if n <= minimum:
+        return minimum
+    step = 1 << max((n - 1).bit_length() - granularity.bit_length() + 1, 0)
+    return -(-n // step) * step
 
 
 def _occupancy_counts(refs: np.ndarray, lo: np.ndarray, h: float) -> np.ndarray:
@@ -209,3 +241,209 @@ class LabelGrid:
                 ).to(self.device)
                 prof["residue"] = time.time() - t0
         return idx.cpu().numpy().astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# CSR grid: 1-NN with a doubled-cell retry, and the k-NN of dense self-joins
+# ---------------------------------------------------------------------------
+
+
+def _build_hash_grid(
+    refs: np.ndarray, cell_size: float
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, float]:
+    """Bucket refs by hashed grid cell.
+
+    Returns (order, starts(T+1) int32, lo, dims(3) int64, inv_h).  Table size
+    T is a power of two ~2x the point count (capped at ``_MAX_TABLE``), so
+    memory never scales with the scene's extent.
+    """
+    lo = refs.min(axis=0)
+    extent = np.maximum(refs.max(axis=0) - lo, 1e-6)
+    inv_h = 1.0 / cell_size
+    dims = np.maximum(np.ceil(extent * inv_h).astype(np.int64) + 1, 1)
+    cells = np.clip(np.floor((refs - lo) * inv_h).astype(np.int64), 0, dims - 1)
+
+    t_size = 1 << max(int(2 * max(len(refs), 1) - 1).bit_length(), 10)
+    t_size = min(t_size, _MAX_TABLE)
+    cu = cells.astype(np.uint32)
+    bucket = (
+        (cu[:, 0] * np.uint32(_P1))
+        ^ (cu[:, 1] * np.uint32(_P2))
+        ^ (cu[:, 2] * np.uint32(_P3))
+    ) & np.uint32(t_size - 1)
+    order = np.argsort(bucket, kind="stable")
+    counts = np.bincount(bucket.astype(np.int64), minlength=t_size)
+    starts = np.zeros(t_size + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    return order, starts.astype(np.int32), lo, dims, inv_h
+
+
+def _grid_tensors(refs: np.ndarray, cell_size: float, device: torch.device):
+    """The CSR grid of ``refs`` on ``device``: (order, grid tensors for the
+    cores: refs_sorted, starts, lo, inv_h, dims)."""
+    order, starts, lo, dims, inv_h = _build_hash_grid(refs, cell_size)
+    grid = (
+        torch.from_numpy(refs[order]).to(device),
+        torch.from_numpy(starts).to(device),
+        torch.from_numpy(np.asarray(lo, np.float32)).to(device),
+        torch.tensor(np.float32(inv_h), device=device),
+        torch.from_numpy(dims.astype(np.int32)).to(device),
+    )
+    return order, grid
+
+
+def _grid_candidates(q, refs_sorted, starts, lo, inv_h, dims, cap: int):
+    """The candidates of (B, 3) queries in their 2x2x2 windows: (slot (B,
+    8*cap) int64 into refs_sorted, d2 (B, 8*cap) with +inf for empty slots,
+    ovf (B,) True where a visited bucket holds more than ``cap``)."""
+    table_mask = starts.shape[0] - 2  # T - 1
+    m = refs_sorted.shape[0]
+    offs = torch.tensor(_OFFS, dtype=torch.int32, device=q.device)
+    base = torch.floor((q - lo) * inv_h - 0.5).to(torch.int32)
+    c = base[:, None, :] + offs[None, :, :]  # (B, 8, 3)
+    in_grid = ((c >= 0) & (c < dims)).all(dim=-1)
+    cl = c.long()
+    # uint32 wrap-around hash: the low bits of the int64 products agree.
+    cid = ((cl[..., 0] * _P1) ^ (cl[..., 1] * _P2) ^ (cl[..., 2] * _P3)) & table_mask
+    s = starts[cid].long()
+    e = starts[cid + 1].long()
+    ovf = (in_grid & ((e - s) > cap)).any(dim=1)
+    slot = s[..., None] + torch.arange(cap, device=q.device)  # (B, 8, cap)
+    valid = (slot < e[..., None]) & in_grid[..., None]
+    slot = slot.clamp(0, m - 1)
+    cand = refs_sorted[slot]  # (B, 8, cap, 3)
+    diff = q[:, None, None, :] - cand
+    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] \
+        + diff[..., 2] * diff[..., 2]
+    d2 = torch.where(valid, d2, torch.full_like(d2, float("inf")))
+    b = q.shape[0]
+    return slot.reshape(b, 8 * cap), d2.reshape(b, 8 * cap), ovf
+
+
+def _chunks(n: int, cap: int, q_block: int):
+    rows = max(q_block, _CHUNK_CANDIDATES // (8 * cap))
+    return range(0, n, rows), rows
+
+
+def _grid_nn_core(queries, refs_sorted, starts, lo, inv_h, dims, cap: int,
+                  q_block: int):
+    """Nearest window candidate per query: (slot (N,) int64 into
+    refs_sorted, d2 (N,), ovf (N,) bool).  Ties go to the first candidate
+    position, as the JAX core's running argmin over the offsets gives."""
+    out_i, out_d, out_o = [], [], []
+    starts_at, rows = _chunks(queries.shape[0], cap, q_block)
+    for s in starts_at:
+        slot, d2, ovf = _grid_candidates(queries[s:s + rows], refs_sorted, starts,
+                                         lo, inv_h, dims, cap)
+        pos = torch.argmin(d2, dim=1, keepdim=True)
+        out_i.append(slot.gather(1, pos)[:, 0])
+        out_d.append(d2.gather(1, pos)[:, 0])
+        out_o.append(ovf)
+    return torch.cat(out_i), torch.cat(out_d), torch.cat(out_o)
+
+
+def _grid_knn_core(queries, refs_sorted, starts, lo, inv_h, dims, cap: int,
+                   k: int, q_block: int):
+    """The k nearest window candidates per query, nearest first: (slot (N,
+    k) int64 into refs_sorted, d2 (N, k)).  Ties go to the first candidate
+    position, as ``jax.lax.top_k`` gives."""
+    out_i, out_d = [], []
+    starts_at, rows = _chunks(queries.shape[0], cap, q_block)
+    for s in starts_at:
+        slot, d2, _ = _grid_candidates(queries[s:s + rows], refs_sorted, starts,
+                                       lo, inv_h, dims, cap)
+        d2_k, pos = select_smallest(d2, k)
+        out_i.append(slot.gather(1, pos))
+        out_d.append(d2_k)
+    return torch.cat(out_i), torch.cat(out_d)
+
+
+def nearest_neighbor_indices_grid(
+    queries,
+    refs,
+    cell_size: Optional[float] = None,
+    cap: int = 48,
+    q_block: int = 8192,
+    _depth: int = 0,
+    *,
+    device=None,
+) -> np.ndarray:
+    """Grid-hashed 1-NN, exact by construction.
+
+    Hashed answers are kept only when found within h/2 (every point that
+    close lies inside the 2x2x2 window) with no bucket overflow; the rest
+    retry through the grid at doubled cell size (and doubled ``cap``, at
+    most 256) up to twice while more than 65,536 remain, then the exact
+    1-NN takes the remainder.  ``queries`` (tensor or array) are searched
+    on ``device`` (None: the card); the grid is built from the host copy of
+    ``refs``.  Returns (N,) int32 indices into ``refs``.
+    """
+    device = device_or_card(device)
+    q = torch.as_tensor(queries, dtype=torch.float32).to(device)
+    refs = np.asarray(refs.cpu() if isinstance(refs, torch.Tensor) else refs,
+                      dtype=np.float32)
+    n, m = q.shape[0], len(refs)
+    if n == 0:
+        return np.zeros((0,), np.int32)
+    if cell_size is None:
+        cell_size = _choose_cell_size(refs, cap)
+    order, grid = _grid_tensors(refs, cell_size, device)
+    slot, d2, ovf = _grid_nn_core(q, *grid, int(cap), int(q_block))
+    r2 = torch.tensor(np.float32((0.5 * cell_size) ** 2), device=device)
+    enc = torch.where((d2 <= r2) & ~ovf, slot, torch.full_like(slot, -1)).cpu().numpy()
+    resolved = enc >= 0
+    result = order[np.clip(enc, 0, m - 1)].astype(np.int32)
+    if not resolved.all():
+        un = np.flatnonzero(~resolved)
+        q_un = q[torch.from_numpy(un).to(device)]
+        if _depth < 2 and len(un) > 65536:
+            result[un] = nearest_neighbor_indices_grid(
+                q_un, refs, cell_size=2.0 * cell_size, cap=min(2 * cap, 256),
+                q_block=q_block, _depth=_depth + 1, device=device)
+        else:
+            result[un] = nearest_neighbor_indices(q_un, refs, device=device)
+    return result
+
+
+def knn_grid(
+    queries,
+    refs,
+    k: int,
+    cell_size: Optional[float] = None,
+    cap: int = 48,
+    q_block: int = 4096,
+    device_arrays: bool = False,
+    *,
+    device=None,
+):
+    """Grid-hashed approximate k-NN for dense self-joins (outlier removal,
+    normal estimation).  Candidates come from the 2x2x2 nearest cells (at
+    most 8*cap); the cell size adapts so that p99 bucket occupancy stays
+    within max(cap, k).  A query with fewer than k finite candidates keeps
+    +inf distances; buckets beyond ``cap`` are truncated (use ``ops.knn``
+    for the exact join).  The search runs on ``device`` (None: the card).
+
+    Returns (indices (N, k) int32, dists (N, k) float32 Euclidean) as numpy,
+    or with ``device_arrays`` the device tensors (indices (N, k) int64,
+    SQUARED distances (N, k)), as the JAX package hands its callers device
+    arrays of d2.  k is capped at 8 * cap.
+    """
+    device = device_or_card(device)
+    q = torch.as_tensor(queries, dtype=torch.float32).to(device)
+    refs = np.asarray(refs.cpu() if isinstance(refs, torch.Tensor) else refs,
+                      dtype=np.float32)
+    n, m = q.shape[0], len(refs)
+    if n == 0:
+        return np.zeros((0, k), np.int32), np.zeros((0, k), np.float32)
+    if cell_size is None:
+        # Need ~4k candidates across the 8-cell neighbourhood.
+        cell_size = _choose_cell_size(refs, max(cap, k))
+    order, grid = _grid_tensors(refs, cell_size, device)
+    slot, d2 = _grid_knn_core(q, *grid, int(cap), int(min(k, 8 * cap)), int(q_block))
+    if device_arrays:
+        order_dev = torch.from_numpy(order).to(device)
+        return order_dev[slot.clamp(0, m - 1)], d2
+    slot, d2 = slot.cpu().numpy(), d2.cpu().numpy()
+    idx = order[np.clip(slot, 0, m - 1)].astype(np.int32)
+    return idx, np.sqrt(np.maximum(np.where(np.isfinite(d2), d2, np.inf), 0.0)).astype(
+        np.float32)

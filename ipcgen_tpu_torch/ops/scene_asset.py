@@ -1,6 +1,6 @@
 """Device-resident scene acceleration structure.
 
-Port of ``ipcgen_tpu/ops/scene_asset.py`` (:31-258).  The build is the same
+Port of ``ipcgen_tpu/ops/scene_asset.py`` (:31-265).  The build is the same
 host numpy (Morton-sorted 128-triangle leaf blocks padded with far-away
 degenerate triangles, NaN AABBs for fully padded blocks, super-block AABBs,
 the block-count bucketing); the result holds torch tensors on ``device``.
@@ -218,4 +218,14 @@ def build_scene_asset(vertices, triangles, block_size: int = 128,
         build_scene_arrays(vertices, triangles, block_size, super_factor,
                            morton_bits, bucket),
         device,
+    )
+
+
+def asset_from_mesh(mesh, block_size: int = 128, super_factor: int = 8, *,
+                    device=None) -> SceneAsset:
+    """The asset of a ``TriMesh``-like object (vertices, triangles) on
+    ``device`` (None: the card)."""
+    return build_scene_asset(
+        np.asarray(mesh.vertices), np.asarray(mesh.triangles), block_size,
+        super_factor, device="cuda" if device is None else device,
     )

@@ -1,12 +1,19 @@
 """S3DIS simulation orchestration on one device.
 
-Port of ``ipcgen_tpu/sim/simulator.py`` (:56-489, :509-611): load the mesh
+Port of ``ipcgen_tpu/sim/simulator.py`` (:56-611, :703-946): load the mesh
 and build the resident scene asset, plan the trajectory on the host, run the
 fused multi-waypoint scan, build the frames and statistics, transfer labels
-and write the artifacts.  The device is the card (``"cuda"``) unless the
-caller names another or the config's ``raycast_engine.use_gpu`` is False,
-which asks for the CPU (``resolve_device``); nothing falls back to another
-device or engine.
+and write the artifacts; over a reconstruction directory, the batch entry
+point ``main`` (skip and resume, an optional asynchronous export) and
+``main_single``:
+
+    python -m ipcgen_tpu_torch.sim.simulator
+
+runs ``main()`` with its defaults.
+
+The device is the card (``"cuda"``) unless the caller names another or the
+config's ``raycast_engine.use_gpu`` is False, which asks for the CPU
+(``resolve_device``); nothing falls back to another device or engine.
 
 The raycast backend comes from the config's ``raycast_engine.backend``, in
 the JAX package's names (``port_backend``): "auto" and "mxu" run the
@@ -19,9 +26,11 @@ The trajectory planner's ``occupancy_mode`` comes from the config's
 ``trajectory`` section: "vertices" (the default) or "raycast", which probes
 the planning grid through the resident scene asset (``ops/occupancy.py``).
 
-Not ported yet (see ROADMAP.md): visualisations, multi-device room
-parallelism, the shard-level raycast paths, and the batch entry points
-``main``/``main_single`` with ``find_available_scenes``.
+Not ported yet (see ROADMAP.md): visualisations (``save_visualizations``
+defaults to False and raises when True), the multi-device room parallelism
+of ``run_scenes_device_parallel`` (``main(room_dp=True)`` raises with more
+than one card and runs the sequential path with one), and the shard-level
+raycast paths.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ from __future__ import annotations
 import json
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +47,11 @@ from ipcgen_tpu_torch.config import PipelineConfig
 from ipcgen_tpu_torch.containers.mesh import TriMesh
 from ipcgen_tpu_torch.containers.scene import RoomBounds, S3DISScene
 from ipcgen_tpu_torch.containers.sim_frame import S3DISSimFrame, ScanQuality
-from ipcgen_tpu_torch.containers.sim_scene import LabelPrefetch, S3DISSimScene
+from ipcgen_tpu_torch.containers.sim_scene import (
+    LabelPrefetch,
+    S3DISSimScene,
+    claim_prewarmed_labels,
+)
 from ipcgen_tpu_torch.models.lidar_intrinsics import (
     DualAxisLidarIntrinsics,
     Indoor8LineLidarIntrinsics,
@@ -145,10 +158,16 @@ class S3DISSimulator:
                                              device=self.device)
         root = self.config.get("s3dis_data_root")
         area, room = self.config.get("area"), self.config.get("room")
-        self._label_prefetch = (
-            LabelPrefetch(root, area, room, device=self.device)
-            if root and area and room else None
-        )
+        # A batch run may have prewarmed this room's labels
+        # (containers.sim_scene.prewarm_labels): claim that prefetch, else
+        # start one now.
+        self._label_prefetch = claim_prewarmed_labels(root, area, room,
+                                                      device=self.device)
+        if self._label_prefetch is None:
+            self._label_prefetch = (
+                LabelPrefetch(root, area, room, device=self.device)
+                if root and area and room else None
+            )
         traj = self.config.get("trajectory", {}) or {}
         self.trajectory_generator = SmartTrajectoryGenerator(
             room_bounds.to_dict(), robot_height=traj.get("robot_height", 1.0))
@@ -169,6 +188,10 @@ class S3DISSimulator:
             room_bounds=self.scene.room_bounds.to_dict(),
             num_waypoints=num_waypoints,
         )
+
+    def add_furniture(self, furniture_mesh, name: str, category: str = "unknown") -> None:
+        """Register furniture for planning (reference: :169-179)."""
+        self.collision_detector.add_furniture_from_mesh(furniture_mesh, name, category)
 
     def generate_trajectory(self, start_point, end_point,
                             path_type: PathType = PathType.STRAIGHT,
@@ -281,11 +304,39 @@ class S3DISSimulator:
         output_dir = Path(output_dir)
         sim_scene.save_results(output_dir)
 
+    def run_complete_simulation(
+        self,
+        scene_path: str,
+        start_point,
+        end_point,
+        path_type: PathType = PathType.STRAIGHT,
+        num_waypoints: int = 20,
+        output_dir: Optional[Path] = None,
+        scene_name: Optional[str] = None,
+    ) -> S3DISSimScene:
+        """Load -> manual trajectory -> scan -> save (reference: :366-405)."""
+        self.load_scene(scene_path, scene_name)
+        waypoints, _trajectory_quality = self.generate_trajectory(
+            start_point, end_point, path_type, num_waypoints)
+        sim_scene = self.run_simulation(waypoints)
+        if output_dir is None:
+            output_dir = Path("s3dis_simulation_results")
+        self.save_results(sim_scene, output_dir, waypoints)
+        return sim_scene
+
     def run_auto_simulation(self, scene_path: str, num_waypoints: int = 20,
                             output_dir: Optional[Path] = None,
                             scene_name: Optional[str] = None,
-                            save_visualizations: bool = False) -> S3DISSimScene:
-        """Load -> auto trajectory -> scan -> save."""
+                            save_visualizations: bool = False,
+                            save_executor: Optional[Any] = None) -> S3DISSimScene:
+        """Load -> auto trajectory -> scan -> save.
+
+        With ``save_executor`` (a ``concurrent.futures.Executor``) the export
+        (label transfer join, PLY and statistics writing) is submitted to it
+        and the pending future is attached as ``sim_scene.save_future``, so
+        the caller can start the next scene's device work while this one's
+        export drains.  Visualisations are off in that mode.
+        """
         t0 = time.time()
         self.load_scene(scene_path, scene_name)
         t1 = time.time()
@@ -295,13 +346,21 @@ class S3DISSimulator:
         sim_scene.profile["load_scene"] = t1 - t0
         sim_scene.profile["trajectory"] = t2 - t1
         output_dir = Path(output_dir or "s3dis_auto_simulation_results")
-        t3 = time.time()
-        self.save_results(sim_scene, output_dir, waypoints,
-                          save_visualizations=save_visualizations)
-        with open(output_dir / "trajectory_analysis.json", "w",
-                  encoding="utf-8") as f:
-            json.dump(analysis_info, f, indent=2, ensure_ascii=False)
-        sim_scene.profile["save"] = time.time() - t3
+
+        def _save() -> None:
+            t3 = time.time()
+            self.save_results(sim_scene, output_dir, waypoints,
+                              save_visualizations=save_visualizations
+                              and save_executor is None)
+            with open(output_dir / "trajectory_analysis.json", "w",
+                      encoding="utf-8") as f:
+                json.dump(analysis_info, f, indent=2, ensure_ascii=False)
+            sim_scene.profile["save"] = time.time() - t3
+
+        if save_executor is not None:
+            sim_scene.save_future = save_executor.submit(_save)
+        else:
+            _save()
         return sim_scene
 
 
@@ -371,13 +430,10 @@ def run_single_scene_simulation(
     ``use_gpu=False`` asks for the CPU, and a ``device`` other than the CPU
     then raises (``resolve_device``; nothing falls back).
     ``save_visualizations`` defaults to False, not True as in the JAX
-    package, because visualisations are not ported; ``save_executor`` (the
-    asynchronous export) is not ported either and raises.
+    package, because visualisations are not ported.  ``save_executor``
+    takes the export of an auto-trajectory scene off the caller's thread
+    (``S3DISSimulator.run_auto_simulation``).
     """
-    if save_executor is not None:
-        raise NotImplementedError(
-            "save_executor (the asynchronous export of run_auto_simulation) is not "
-            "ported yet: ROADMAP.md, Queue 1 item 2")
     if scene_name is None:
         scene_name = Path(scene_path).parent.name
     output_dir = Path(output_base_dir) / scene_name
@@ -399,6 +455,7 @@ def run_single_scene_simulation(
             scene_path=scene_path, num_waypoints=num_waypoints,
             output_dir=output_dir, scene_name=scene_name,
             save_visualizations=save_visualizations,
+            save_executor=save_executor,
         )
     else:
         print(f"[Simulation] Using manual trajectory for {scene_name}.")
@@ -415,3 +472,212 @@ def run_single_scene_simulation(
                                save_visualizations=save_visualizations)
     print(f"[Simulation] Scene {scene_name} completed.")
     return sim_scene
+
+
+def find_available_scenes(
+    reconstruction_dir: str = "outputs/s3dis_reconstruction/reconstruction_results",
+) -> List[Tuple[str, str, str]]:
+    """Reconstructed scene meshes under ``reconstruction_dir``: one
+    (mesh path, scene name, area_room) per scene directory holding a
+    ``mesh_*.ply``, ``mesh_dense.ply`` preferred (reference: :556-591)."""
+    reconstruction_path = Path(reconstruction_dir)
+    if not reconstruction_path.exists():
+        print(f"[Discovery] Reconstruction directory not found: {reconstruction_dir}")
+        return []
+    available_scenes = []
+    for scene_dir in sorted(reconstruction_path.iterdir()):
+        if scene_dir.is_dir():
+            mesh_files = sorted(scene_dir.glob("mesh_*.ply"))
+            if mesh_files:
+                dense_mesh = scene_dir / "mesh_dense.ply"
+                mesh_path = str(dense_mesh) if dense_mesh.exists() else str(mesh_files[0])
+                scene_name = scene_dir.name
+                available_scenes.append((mesh_path, scene_name, scene_name))
+                print(f"[Discovery] Found scene {scene_name}: {mesh_path}")
+    print(f"[Discovery] Total scenes discovered: {len(available_scenes)}")
+    return available_scenes
+
+
+def _parse_area_room(area_room: str) -> Tuple[str, str]:
+    """(area, room) from a scene directory name (reference: :658-667)."""
+    if "_" in area_room:
+        parts = area_room.split("_")
+        if len(parts) >= 3 and parts[0] == "Area":
+            return f"{parts[0]}_{parts[1]}", "_".join(parts[2:])
+        area, room = area_room.split("_", 1)
+        return area, room
+    return area_room, area_room
+
+
+def _print_batch_summary(
+    n_total: int, successful, skipped, failed, total_time: float
+) -> None:
+    print(f"[Batch] Total scenes: {n_total}")
+    print(f"[Batch] Completed: {len(successful)}")
+    print(f"[Batch] Skipped: {len(skipped)}")
+    print(f"[Batch] Failed: {len(failed)}")
+    print(f"[Batch] Total time: {total_time:.1f}s ({total_time / 60:.1f} min)")
+    if n_total:
+        print(f"[Batch] Average per scene: {total_time / n_total:.1f}s")
+        rooms_per_hour = len(successful) / total_time * 3600 if total_time > 0 else 0
+        print(f"[Batch] Throughput: {rooms_per_hour:.1f} rooms/hour")
+
+
+def main(
+    reconstruction_dir: str = "outputs/s3dis_reconstruction/reconstruction_results",
+    num_waypoints: int = 20,
+    output_base_dir: str = "simulation_results",
+    use_gpu: bool = True,
+    robot_height: float = 1.0,
+    use_dense_lidar: bool = False,
+    use_blk2go: bool = True,
+    use_auto_trajectory: bool = True,
+    s3dis_data_root: str = "S3DIS/raw/S3DIS/data/Stanford3dDataset_v1.2_Aligned_Version",
+    async_export: bool = False,
+    save_visualizations: bool = False,
+    room_dp: bool = False,
+    lidar_horizontal_res: Optional[int] = None,
+    *,
+    device=None,
+) -> Dict[str, Any]:
+    """Batch entry point over every reconstructed scene (reference:
+    :594-726), each through ``run_single_scene_simulation`` on ``device``
+    (None: the card; ``use_gpu=False`` asks for the CPU).
+
+    Skip and resume as the reference: a scene is skipped when both its
+    labeled PLY and its statistics txt exist, and a partly written one runs
+    again.  ``async_export=True`` overlaps each scene's export with the next
+    scene's device work on one background thread (depth-1 double buffering);
+    a scene whose export raises counts as failed.  ``room_dp=True`` runs the
+    sequential path on one card and raises ``NotImplementedError`` with
+    more, where the JAX package spreads rooms over its devices
+    (``run_scenes_device_parallel``, not ported).
+
+    Returns {"successful": [(name, sim_scene)], "failed": [(name, error)],
+    "skipped": [name], "total_time": seconds}.
+    """
+    print("=== S3DIS batch simulation ===")
+    available_scenes = find_available_scenes(reconstruction_dir)
+    if not available_scenes:
+        print("[Batch] No scenes found. Verify the reconstruction directory.")
+        return {"successful": [], "failed": [], "skipped": []}
+    if room_dp and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            "room_dp with more than one card (run_scenes_device_parallel) is not "
+            "ported yet: ROADMAP.md, Queue 1 item 7")
+
+    executor = None
+    pending: Optional[Tuple[str, Any]] = None
+    if async_export:
+        from concurrent.futures import ThreadPoolExecutor
+
+        executor = ThreadPoolExecutor(max_workers=1)
+
+    successful_scenes, failed_scenes, skipped_scenes = [], [], []
+
+    def drain() -> None:
+        """Wait for the export in flight; its failure fails its scene."""
+        nonlocal pending, successful_scenes
+        if pending is None:
+            return
+        prev_name, prev_future = pending
+        pending = None
+        try:
+            prev_future.result()
+        except Exception as e:
+            failed_scenes.append((prev_name, str(e)))
+            successful_scenes = [sc for sc in successful_scenes if sc[0] != prev_name]
+
+    start_time = time.time()
+    try:
+        for i, (scene_path, scene_name, area_room) in enumerate(available_scenes, 1):
+            print(f"[Batch] Processing scene {i}/{len(available_scenes)}: {scene_name}")
+            scene_output_dir = Path(output_base_dir) / scene_name
+            ply_file = scene_output_dir / "combined_pointcloud_with_label.ply"
+            stats_file = scene_output_dir / "simulation_statistics.txt"
+            if ply_file.exists() and stats_file.exists():
+                print(f"[Batch] Scene {scene_name} already processed. Skipping.")
+                skipped_scenes.append(scene_name)
+                continue
+            elif ply_file.exists() or stats_file.exists():
+                print(f"[Batch] Scene {scene_name} partially processed. Re-running.")
+            try:
+                area, room = _parse_area_room(area_room)
+                # At most one export in flight: wait for the previous one
+                # before this scene's export can be submitted.
+                drain()
+                sim_scene = run_single_scene_simulation(
+                    scene_path=scene_path,
+                    scene_name=scene_name,
+                    num_waypoints=num_waypoints,
+                    output_base_dir=output_base_dir,
+                    use_gpu=use_gpu,
+                    robot_height=robot_height,
+                    use_dense_lidar=use_dense_lidar,
+                    use_blk2go=use_blk2go,
+                    use_auto_trajectory=use_auto_trajectory,
+                    s3dis_data_root=s3dis_data_root,
+                    area=area,
+                    room=room,
+                    save_visualizations=save_visualizations,
+                    save_executor=executor,
+                    lidar_horizontal_res=lidar_horizontal_res,
+                    device=device,
+                )
+                successful_scenes.append((scene_name, sim_scene))
+                if getattr(sim_scene, "save_future", None) is not None:
+                    pending = (scene_name, sim_scene.save_future)
+                print(f"[Batch] Scene {scene_name} succeeded.")
+            except Exception as e:
+                failed_scenes.append((scene_name, str(e)))
+                print(f"[Batch] Scene {scene_name} failed: {e}")
+        drain()
+    finally:
+        if executor is not None:
+            executor.shutdown(wait=True)
+
+    total_time = time.time() - start_time
+    _print_batch_summary(
+        len(available_scenes), successful_scenes, skipped_scenes,
+        failed_scenes, total_time,
+    )
+    return {
+        "successful": successful_scenes,
+        "failed": failed_scenes,
+        "skipped": skipped_scenes,
+        "total_time": total_time,
+    }
+
+
+def main_single(
+    scene_path: str = (
+        "outputs/s3dis_reconstruction/reconstruction_results/Area_1_office_1/"
+        "mesh_dense.ply"
+    ),
+    scene_name: str = "Area_1_office_1",
+    area: str = "Area_1",
+    room: str = "office_1",
+    num_waypoints: int = 20,
+    **kwargs,
+) -> S3DISSimScene:
+    """One named scene (reference: :729-807); ``kwargs`` (``device`` among
+    them) go to ``run_single_scene_simulation``."""
+    sim_scene = run_single_scene_simulation(
+        scene_path=scene_path,
+        scene_name=scene_name,
+        num_waypoints=num_waypoints,
+        area=area,
+        room=room,
+        **kwargs,
+    )
+    print("[Single] Simulation completed.")
+    if sim_scene and len(sim_scene.frames) > 0:
+        total = sum(len(f.points) for f in sim_scene.frames)
+        print(f"Frames: {len(sim_scene.frames)}")
+        print(f"Total points: {total:,}")
+        print(f"Average points per frame: {total // len(sim_scene.frames):,}")
+    return sim_scene
+
+
+if __name__ == "__main__":
+    main()

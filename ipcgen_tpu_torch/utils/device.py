@@ -22,6 +22,12 @@ def as_device(device) -> torch.device:
     return device
 
 
+def device_or_card(device) -> torch.device:
+    """``device``, or the card (the current CUDA device) when it is None:
+    the port's entry points run on the card unless asked otherwise."""
+    return as_device("cuda" if device is None else device)
+
+
 def sync(x=None) -> None:
     """Wait until the work queued on ``x``'s device has finished.
 

@@ -6,7 +6,8 @@ inward 6 x 5 x 2.5 m box with 12 furniture boxes, 1->4 subdivided towards a
 target triangle count), copied here so that the port and ``chip_smoke.py``
 need nothing outside the package.  ``write_s3dis_room`` samples points on the
 same surfaces and writes them in the S3DIS layout the label path reads: the
-room txt (``x y z r g b``) plus ``Annotations/{class}_{k}.txt``.
+room txt (``x y z r g b``) plus ``Annotations/{class}_{k}.txt``; with scanner
+noise and far outliers, it is the preprocess stage's test room.
 
 ``cluttered_room``, ``hardware_rays`` and ``hardware_scene`` are the scene
 and rays of ``tests/test_tpu_hardware.py:31-50``, shared by ``chip_smoke.py``
@@ -32,6 +33,7 @@ CLASS_COLORS = {
     "table": (150, 90, 40), "chair": (60, 60, 160), "sofa": (160, 40, 40),
     "bookcase": (90, 60, 20),
 }
+OUTLIER_RGB = (255, 0, 255)  # the far outliers' colour (write_s3dis_room)
 
 
 def furniture_boxes(seed: int = 0) -> List[Tuple[Tuple[float, ...], Tuple[float, ...]]]:
@@ -120,10 +122,29 @@ def _surfaces(seed: int):
     return out
 
 
-def write_s3dis_room(room_dir, n_points: int = 600_000, seed: int = 0) -> int:
+def _far_outliers(rng, n: int, margin: float = 0.25, pad: float = 1.5) -> np.ndarray:
+    """``n`` points uniform in the room's box grown by ``pad`` metres, none
+    within ``margin`` of the room's box: far from every surface sample."""
+    lo, hi = -pad, np.asarray(ROOM_SIZE) + pad
+    out = np.zeros((0, 3))
+    while len(out) < n:
+        p = rng.uniform(lo, hi, (2 * n + 16, 3))
+        inside = np.all((p > -margin) & (p < np.asarray(ROOM_SIZE) + margin), axis=1)
+        out = np.vstack([out, p[~inside]])
+    return out[:n]
+
+
+def write_s3dis_room(room_dir, n_points: int = 600_000, seed: int = 0,
+                     noise_std: float = 0.0, outlier_frac: float = 0.0) -> int:
     """Write ``{room}.txt`` and ``Annotations/*.txt`` for the synthetic room
     under ``room_dir`` (its last path part is the room name), with about
-    ``n_points`` points spread over the surfaces by area.  Returns the count."""
+    ``n_points`` points spread over the surfaces by area.  Returns the count.
+
+    ``noise_std`` (metres) adds Gaussian noise to every surface point;
+    ``outlier_frac`` adds that share of far outliers (``_far_outliers``) to
+    the room txt only, coloured ``OUTLIER_RGB``, which no surface takes.
+    At their defaults the files are those written without them.
+    """
     room_dir = Path(room_dir)
     ann_dir = room_dir / "Annotations"
     ann_dir.mkdir(parents=True, exist_ok=True)
@@ -137,11 +158,16 @@ def write_s3dis_room(room_dir, n_points: int = 600_000, seed: int = 0) -> int:
             _rect(rng, max(int(n_points * area(u, v) / total), 16), o, u, v)
             for o, u, v in faces
         ])
+        if noise_std > 0:
+            pts = pts + rng.normal(0.0, noise_std, pts.shape)
         base = np.asarray(CLASS_COLORS[name.rsplit("_", 1)[0]])
         rgb = np.clip(base + rng.integers(-12, 13, (len(pts), 3)), 0, 255)
         r = np.hstack([np.round(pts, 3), rgb])
         np.savetxt(ann_dir / f"{name}.txt", r, fmt="%.3f %.3f %.3f %d %d %d")
         rows.append(r)
+    if outlier_frac > 0:
+        far = _far_outliers(rng, int(round(outlier_frac * sum(map(len, rows)))))
+        rows.append(np.hstack([np.round(far, 3), np.tile(OUTLIER_RGB, (len(far), 1))]))
     room = np.vstack(rows)
     room = room[rng.permutation(len(room))]
     np.savetxt(room_dir / f"{room_dir.name}.txt", room,

@@ -3,7 +3,8 @@
 four, imports ``ipcgen_tpu_torch`` and runs the sim stage on the CPU through
 the port's public entry point, then again through the config tree
 (``PipelineConfig.from_dict`` with ``simulation.backend: pallas``, the culled
-path), as ``chip_smoke.py`` does on the card.  A source scan keeps every
+path), as ``chip_smoke.py`` does on the card; then the batch entry point ``main``
+with the asynchronous export, and ``preprocess_room``.  A source scan keeps every
 ``import`` of jax or of ``ipcgen_tpu`` out of the package and
 ``chip_smoke.py``."""
 
@@ -63,6 +64,25 @@ SCRIPT = textwrap.dedent("""
     assert len(counts) == len(want) and all(
         abs(a - b) <= 0.005 * b for a, b in zip(counts, want)), (counts, want)
     assert (out / "culled" / "combined_pointcloud_with_label.ply").is_file()
+
+    # ``main`` over a reconstruction directory, with the async export.
+    from ipcgen_tpu_torch.sim.simulator import main
+
+    scene_dir = out / "recon" / "Area_1_office_1"
+    scene_dir.mkdir(parents=True)
+    (scene_dir / "mesh_dense.ply").write_bytes(mesh.read_bytes())
+    res = main(str(out / "recon"), num_waypoints=4, output_base_dir=str(out / "batch"),
+               use_blk2go=False, s3dis_data_root=sys.argv[2], async_export=True,
+               lidar_horizontal_res=200, device="cpu")
+    assert [n for n, _ in res["successful"]] == ["Area_1_office_1"] and not res["failed"]
+
+    # The preprocess stage on the golden room.
+    from ipcgen_tpu_torch.preprocess import preprocess_room
+
+    room = preprocess_room(sys.argv[2], "Area_1", "office_1", {}, output_dir=str(out / "pre"),
+                           seed=0, device="cpu")
+    assert room["normals"].shape == room["points"].shape and len(room["points"]) > 10000
+    assert Path(room["output_path"]).is_file()
     assert all(sys.modules[n] is None for n in BLOCKED)
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED + ("jaxlib",)
               and sys.modules[m] is not None]
