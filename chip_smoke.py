@@ -101,6 +101,32 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    normals' |dot| against a float64 eigh of the same neighbour sets at a
    median >= 0.9999.  The grid k-NN and the PCA are timed against their
    bounds.  This stage is torch ops: it launches no hand kernel.
+11. the recon stage (``phase_recon``): ``recon.cli.reconstruct_room`` on the
+   pickle of phase 10 (dense and sparse50; voxel 0.03, mise_iter 2, the
+   evaluator's Chamfer and mesh quality on), cold then warm; every variant
+   must reconstruct.  The splat and the marching are timed apart with CUDA
+   events against their bounds; the card's splat of a 200 k-point subset is
+   held to the CPU's (weights 1e-4 relative, SDF 1e-5 m where both weights
+   pass, active cubes equal but where a corner's |sdf| < 1e-6); the dense
+   mesh's area-uniform samples to the TLS cloud (outliers removed): mean < 2
+   voxels, p95 < 4; the evaluator's Chamfer distance against a float64
+   cKDTree on the same subsets within 1e-4 relative.  Torch ops, no hand
+   kernel.
+12. the scan of the reconstruction (``phase_recon_sim``): the JAX bench's
+   headline workload, ``run_single_scene_simulation`` of the recon
+   ``mesh_dense.ply`` with the dense 32-line profile, 20 waypoints and the
+   preprocess room's labels.  The prepass and the walk must launch once
+   each; labels against cKDTree >= 99.9 %; hit fraction > 0.9; scan points
+   to the TLS cloud within 2 voxels (mean) and 4 (p95); the run's own rays
+   to the raycast contract of phase 4, and both pair kernels against their
+   plain versions on its inputs (``recon_dense32`` in the record).
+13. bbox and eval (``phase_bbox_eval``): the S3DIS boxes of the preprocess
+   room and the LiDAR-Net boxes of the recon scan (its class ids written as
+   LiDAR-Net's), each equal to a float64 AABB of its points and inside the
+   room; ``find_best_match`` of the recon scan against a LiDAR-Net layout
+   holding phase 4's dense-32 scan of the true mesh; MMD (10 k), CD (5 k)
+   and HD (3 k) against float64 on the same subsets (MMD 1e-6 absolute,
+   CD and HD 1e-4 relative), each timed.
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the fp32 operations these rays need: the FMA
@@ -829,27 +855,7 @@ def phase_main_path(device, work: Path, card: str):
                                          device=device)
         log(f"[main] {profile}: the run's rays cast again reproduce its frames; "
             f"raycast contract vs oracle {contract}")
-        prepass = prepass_vs_plain(pairs, asset, f"{profile} main-path inputs ({rays} rays)",
-                                   kernel_reps=3)
-        at_shape = kernel_vs_plain(
-            pairs, f"{profile} main-path inputs ({rays} rays)",
-            kernel_reps=3, plain_reps=1)
-        # The work the pair kernel needs for these rays (the plain version's
-        # exact lists) beside what it runs (the kernel prepass's lists).
-        per_pair = pairs["sub"] * asset.tri_data.shape[2]
-        at_shape["exact_list_tests"] = prepass["plain_pairs"] * per_pair
-        at_shape["tests_run"] = int(pairs["blocks"].numel()) * per_pair
-        at_shape.update(bound(
-            nbytes(*(pairs[k] for k in ("f", "trif", "offsets", "blocks")))
-            + 8 * pairs["f"].shape[0],
-            at_shape["exact_list_tests"] * FLOPS_PER_TEST["pairs"]))
-        log(f"[main] {profile}: pair kernel {at_shape['ms']:.3f} ms, bound "
-            f"{at_shape['bound_ms']:.3f} ms ({at_shape['bound_by']}), exact-list tests "
-            f"{at_shape['exact_list_tests']:.4e}, tests run {at_shape['tests_run']:.4e}; "
-            f"prepass {prepass['ms']:.3f} ms, bound {prepass['bound_ms']:.3f} ms "
-            f"({prepass['bound_by']})")
-        require(at_shape["tests_run"] == at_shape["exact_list_tests"],
-                f"{profile}: the pair kernel's tests differ from the exact lists'")
+        at_shape, prepass = pair_kernels_at_shape(asset, pairs, profile, rays, "main")
         del pairs
         runs[profile] = dict(launches=launches, wall_s=wall, rays=rays,
                              frames=n_frames, points=n_points, stages=stages,
@@ -860,6 +866,33 @@ def phase_main_path(device, work: Path, card: str):
     del asset
     batch = phase_batch(device, work, card, mesh_path, data_root)
     return runs, culled, occupancy, batch
+
+
+def pair_kernels_at_shape(asset, pairs: dict, profile: str, rays: int, tag: str):
+    """The prepass and the pair kernel against their plain versions on a
+    run's own inputs, with the pair kernel's bound from the exact lists'
+    tests; the tests it runs must equal those."""
+    prepass = prepass_vs_plain(pairs, asset, f"{profile} main-path inputs ({rays} rays)",
+                               kernel_reps=3)
+    at_shape = kernel_vs_plain(pairs, f"{profile} main-path inputs ({rays} rays)",
+                               kernel_reps=3, plain_reps=1)
+    # The work the pair kernel needs for these rays (the plain version's
+    # exact lists) beside what it runs (the kernel prepass's lists).
+    per_pair = pairs["sub"] * asset.tri_data.shape[2]
+    at_shape["exact_list_tests"] = prepass["plain_pairs"] * per_pair
+    at_shape["tests_run"] = int(pairs["blocks"].numel()) * per_pair
+    at_shape.update(bound(
+        nbytes(*(pairs[k] for k in ("f", "trif", "offsets", "blocks")))
+        + 8 * pairs["f"].shape[0],
+        at_shape["exact_list_tests"] * FLOPS_PER_TEST["pairs"]))
+    log(f"[{tag}] {profile}: pair kernel {at_shape['ms']:.3f} ms, bound "
+        f"{at_shape['bound_ms']:.3f} ms ({at_shape['bound_by']}), exact-list tests "
+        f"{at_shape['exact_list_tests']:.4e}, tests run {at_shape['tests_run']:.4e}; "
+        f"prepass {prepass['ms']:.3f} ms, bound {prepass['bound_ms']:.3f} ms "
+        f"({prepass['bound_by']})")
+    require(at_shape["tests_run"] == at_shape["exact_list_tests"],
+            f"{profile}: the pair kernel's tests differ from the exact lists'")
+    return at_shape, prepass
 
 
 def check_occupancy(asset, v, t) -> dict:
@@ -1231,6 +1264,379 @@ def phase_preprocess(device, work: Path, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The recon stage, the recon mesh's scan, bbox and eval
+# ---------------------------------------------------------------------------
+RECON_VOXEL = 0.03  # nksr.voxel_size of configs/s3dis_config.yaml
+RECON_CONFIG = {"nksr": {"voxel_size": RECON_VOXEL, "mise_iter": 2},
+                "evaluation": {"compute_chamfer": True, "compute_mesh_quality": True},
+                "visualization": {"save_visualizations": False}}
+RECON_HOLD_POINTS = 200_000
+MESH_SAMPLES = 200_000
+# fp32 operations of one splat contribution (ops/sdf.py _fuse): the voxel
+# centre (3 adds, 3 products, 3 adds), its offset from the point (3), the
+# plane distance (3 products, 2 sums), |d|^2 (3, 2), the scale (1), the
+# exponential (1), the weighted distance (1) and the two sums into the grid.
+SPLAT_OPS = 28
+# Per cube of the grid, classifying its 8 corners (a weight compare, a sign
+# compare and three ands or ors each); per active cube, 6 tets of 6 edge
+# interpolations (a difference, a divide, a clamp, 3 products, 3 sums).
+CLASSIFY_OPS, ACTIVE_OPS = 40, 6 * 6 * 10
+
+
+def tls_tree_of(work: Path):
+    """A cKDTree of the preprocess room's dense variant: its TLS points with
+    the outliers removed."""
+    from scipy.spatial import cKDTree
+
+    from ipcgen_tpu_torch.preprocess.loader import load_preprocessed_data
+
+    room = load_preprocessed_data(str(work / "pre_out" / "Area_1_office_1_preprocessed.pkl"))
+    return cKDTree(np.asarray(room["variants"]["dense"]["points"], np.float64))
+
+
+def tls_stats(points: np.ndarray, tls_tree, n: int, seed: int) -> dict:
+    """Distances from ``n`` of ``points`` (a seeded choice) to the TLS cloud."""
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(len(points), min(n, len(points)), replace=False)
+    d, _ = tls_tree.query(np.asarray(points[pick], np.float64), workers=-1)
+    return dict(mean_m=float(d.mean()), p95_m=float(np.percentile(d, 95)),
+                max_m=float(d.max()), samples=int(len(pick)))
+
+
+def phase_recon(device, work: Path, card: str, tls_tree) -> dict:
+    """``recon.cli.reconstruct_room`` on the preprocess room's pickle (dense
+    and sparse50), cold then warm; the splat and the marching timed apart
+    against their bounds; the card's splat held to the CPU's on a 200 k
+    subset; the dense mesh to the TLS cloud; the evaluator's Chamfer
+    distance to a float64 cKDTree on the same subsets."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from ipcgen_tpu_torch.containers.mesh import TriMesh
+    from ipcgen_tpu_torch.ops import marching, sdf
+    from ipcgen_tpu_torch.ops.metrics import chamfer_distance_mean
+    from ipcgen_tpu_torch.ops.sampling import sample_points_on_mesh, \
+        sample_points_poisson_disk
+    from ipcgen_tpu_torch.preprocess.loader import load_preprocessed_data
+    from ipcgen_tpu_torch.recon.cli import reconstruct_room
+    from ipcgen_tpu_torch.utils.device import sync
+
+    pkl = work / "pre_out" / "Area_1_office_1_preprocessed.pkl"
+    out_dir = work / "recon_out"
+    runs = []
+    for turn in ("cold", "warm"):
+        spans = {}
+        t0 = time.time()
+        res = reconstruct_room(str(pkl), RECON_CONFIG, str(out_dir), span_sink=spans,
+                               device=device)
+        sync(device)
+        wall = time.time() - t0
+        variants = {}
+        for name, r in res.items():
+            require("error" not in r, f"recon {turn}: {name} failed: {r}")
+            st, q = r["reconstruction_stats"], r["quality_metrics"]
+            variants[name] = dict(points=st["input_points"], faces=st["output_faces"],
+                                  vertices=st["output_vertices"],
+                                  seconds=st["reconstruction_time"], spans=st["spans"],
+                                  chamfer_m=q["chamfer_distance"],
+                                  watertight=q["is_watertight"], area_m2=q["surface_area"],
+                                  device=st["device_used"])
+            log(f"[recon] {turn} {name}: {json.dumps(variants[name])} on {card}")
+            require(st["output_faces"] > 10_000 and card.split(",")[0] in st["device_used"],
+                    f"recon {turn}: {name}: {st}")
+        log(f"[recon] {turn}: {wall:.3f} s wall; stage spans "
+            f"{json.dumps({k: round(v, 4) for k, v in spans.items()})}")
+        runs.append(dict(turn=turn, wall_s=wall, stage_spans=spans, variants=variants))
+
+    room = load_preprocessed_data(str(pkl))
+    dense = room["variants"]["dense"]
+    pts = np.asarray(dense["points"], np.float32)
+    nrm = np.asarray(dense["normals"], np.float32)
+    n = len(pts)
+
+    # The splat and the marching apart, at the dense variant's shapes.
+    grid = sdf.fuse_point_normal_sdf(pts, nrm, voxel_size=RECON_VOXEL, device=device)
+    nrm_unit = nrm / np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-12)
+    args = (torch.from_numpy(pts).to(device), torch.from_numpy(nrm_unit).to(device),
+            torch.from_numpy(grid.origin).to(device), RECON_VOXEL, grid.shape, 2)
+    splat_ms = time_ms(lambda: sdf._fuse(*args), 3)
+    cells = int(np.prod(grid.shape))
+    contributions = n * 125
+    splat_bound = bound(n * 24 + 2 * cells * 4, contributions * SPLAT_OPS)
+    soup, _ = marching.marching_tetrahedra(grid)
+    active = int(marching._classify_cubes(grid.sdf, grid.valid()).sum())
+    march_ms = time_ms(lambda: marching.marching_tetrahedra(grid), 3)
+    march_bound = bound(2 * cells * 4 + len(soup) * 40,
+                        cells * CLASSIFY_OPS + active * ACTIVE_OPS)
+    shape = grid.shape
+    del grid, args
+    timing = dict(points=n, grid=list(shape), cells=cells,
+                  contributions=contributions, splat_ms=splat_ms,
+                  splat_bound_ms=splat_bound["bound_ms"], splat_bound_by=splat_bound["bound_by"],
+                  active_cubes=active, soup_triangles=int(len(soup)), march_ms=march_ms,
+                  march_bound_ms=march_bound["bound_ms"], march_bound_by=march_bound["bound_by"])
+    log(f"[recon] splat ({n} points x 125 offsets into a {'x'.join(map(str, timing['grid']))} "
+        f"grid): {splat_ms:.3f} ms against {splat_bound['bound_ms']:.4f} ms "
+        f"({splat_bound['bound_by']}: {SPLAT_OPS} fp32 operations a contribution at 67 TFLOP/s, "
+        f"or {splat_bound['bytes'] / 1e6:.1f} MB at 3.35 TB/s), "
+        f"{splat_ms / splat_bound['bound_ms']:.0f}x; marching ({active} active cubes, "
+        f"{len(soup)} triangles, the soup copied to the host): {march_ms:.3f} ms against "
+        f"{march_bound['bound_ms']:.4f} ms ({march_bound['bound_by']}), "
+        f"{march_ms / march_bound['bound_ms']:.0f}x; on {card}")
+
+    # The card's splat against the CPU's on a subset: float atomics sum in
+    # another order, so within tolerance.
+    sel = np.sort(np.random.default_rng(0).choice(n, RECON_HOLD_POINTS, replace=False))
+    g_card = sdf.fuse_point_normal_sdf(pts[sel], nrm[sel], voxel_size=RECON_VOXEL,
+                                       device=device)
+    g_cpu = sdf.fuse_point_normal_sdf(pts[sel], nrm[sel], voxel_size=RECON_VOXEL,
+                                      device="cpu")
+    wg, wc = g_card.weight.cpu().numpy(), g_cpu.weight.numpy()
+    sg, sc_ = g_card.sdf.cpu().numpy(), g_cpu.sdf.numpy()
+    w_rel = float((np.abs(wg - wc) / np.maximum(wc, 1e-3)).max())
+    both = (wg > 1e-3) & (wc > 1e-3)
+    sdf_err = float(np.abs(sg - sc_)[both].max())
+    act_g = marching._classify_cubes(g_card.sdf, g_card.valid()).cpu().numpy()
+    act_c = marching._classify_cubes(g_cpu.sdf, g_cpu.valid()).numpy()
+    tie = np.minimum(np.abs(sg), np.abs(sc_)) < 1e-6
+    x, y, z = tie.shape
+    tie_cube = np.zeros_like(act_c)
+    for dx, dy, dz in marching._CORNERS:
+        tie_cube |= tie[dx:x - 1 + dx, dy:y - 1 + dy, dz:z - 1 + dz]
+    differ = act_g != act_c
+    hold = dict(points=RECON_HOLD_POINTS, weight_rel_err=w_rel, sdf_abs_err_m=sdf_err,
+                active_cubes=int(act_c.sum()), cubes_differ=int(differ.sum()),
+                cubes_differ_not_tie=int((differ & ~tie_cube).sum()))
+    log(f"[recon] splat on the card vs the CPU ({RECON_HOLD_POINTS} points): {json.dumps(hold)}")
+    require(w_rel <= 1e-4 and sdf_err <= 1e-5 and hold["cubes_differ_not_tie"] == 0,
+            f"recon: the card's splat differs from the CPU's: {hold}")
+    del g_card, g_cpu
+
+    # The dense mesh against the TLS cloud, and the evaluator's Chamfer.
+    mesh = TriMesh.load(out_dir / "Area_1_office_1" / "mesh_dense.ply")
+    samples = sample_points_on_mesh(mesh, MESH_SAMPLES, device=device)
+    mesh_tls = tls_stats(samples, tls_tree, MESH_SAMPLES, seed=1)
+    log(f"[recon] dense mesh ({mesh.num_triangles} faces), {MESH_SAMPLES} area-uniform "
+        f"samples to the TLS cloud: {json.dumps(mesh_tls)}")
+    require(mesh_tls["mean_m"] < 2 * RECON_VOXEL and mesh_tls["p95_m"] < 4 * RECON_VOXEL,
+            f"recon: the mesh is off the TLS cloud: {mesh_tls}")
+    n_sample = min(len(dense["points"]), 100_000)  # the evaluator's max_eval_points
+    sampled = sample_points_poisson_disk(mesh, n_sample, device=device)
+    ref = np.asarray(dense["points"])
+    ref = ref[np.random.default_rng(0).choice(len(ref), n_sample, replace=False)]
+    again = chamfer_distance_mean(ref, sampled, max_points=n_sample, device=device)
+    a64 = ref.astype(np.float32).astype(np.float64)
+    b64 = sampled.astype(np.float64)
+    cd64 = (cKDTree(b64).query(a64, workers=-1)[0].mean()
+            + cKDTree(a64).query(b64, workers=-1)[0].mean()) / 2
+    reported = runs[-1]["variants"]["dense"]["chamfer_m"]
+    chamfer = dict(reported_m=reported, again_m=again, float64_m=float(cd64),
+                   rel_err=abs(reported - cd64) / cd64, samples=n_sample)
+    log(f"[recon] evaluator Chamfer vs float64 cKDTree on the same subsets: "
+        f"{json.dumps(chamfer)}")
+    require(abs(again - reported) <= 1e-6 * reported,
+            f"recon: the evaluator's subsets are not reproduced: {chamfer}")
+    require(chamfer["rel_err"] <= 1e-4, f"recon: Chamfer off float64: {chamfer}")
+    return dict(runs=runs, timing=timing, splat_hold=hold, mesh_tls=mesh_tls,
+                chamfer=chamfer, card=card)
+
+
+def phase_recon_sim(device, work: Path, card: str, tls_tree) -> dict:
+    """The JAX bench's headline workload on the port: the sim stage over the
+    reconstructed ``mesh_dense.ply`` with the dense 32-line profile, 20
+    waypoints, labels from the preprocess room, the pair kernels; held to
+    the raycast contract against the oracle and to the TLS cloud."""
+    from ipcgen_tpu_torch.containers.mesh import TriMesh
+    from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
+    from ipcgen_tpu_torch.sim.simulator import S3DISSimulator, run_single_scene_simulation
+    from ipcgen_tpu_torch.utils.device import sync
+
+    mesh_path = work / "recon_out" / "Area_1_office_1" / "mesh_dense.ply"
+    data_root = work / "pre_s3dis"
+    for k in _kernels.LAUNCHES:
+        _kernels.LAUNCHES[k] = 0
+    t0 = time.time()
+    sc = run_single_scene_simulation(
+        str(mesh_path), scene_name="recon_dense32", num_waypoints=20,
+        output_base_dir=str(work / "recon_sim"), use_blk2go=False, use_dense_lidar=True,
+        s3dis_data_root=str(data_root), area="Area_1", room="office_1", seed=0,
+        device=device)
+    sync(device)
+    wall = time.time() - t0
+    launches = dict(_kernels.LAUNCHES)
+    mesh = TriMesh.load(mesh_path)
+    v, t = mesh.vertices.astype(np.float32), mesh.triangles.astype(np.int32)
+    intr = S3DISSimulator({}, use_dense_lidar=True, device=device).lidar_config
+    rays = len(sc.frames) * intr.get_total_points_per_scan()
+    n_points = [len(f.points) for f in sc.frames]
+    stages = {k: round(float(x), 4) for k, x in sorted(sc.profile.items())}
+    rate = rays / (stages["dispatch"] + stages["scan_exec"])
+    log(f"[recon-sim] recon mesh {len(t)} faces, dense-32: {len(sc.frames)} frames, {rays} "
+        f"rays, {sum(n_points)} points, {wall:.2f} s wall, launches {launches}; stage "
+        f"seconds on {card}: {json.dumps(stages)}; {rate:.0f} rays/s over dispatch + "
+        f"scan_exec")
+    require(launches["raycast_pairs"] == 1 and launches["raycast_pairs_prepass"] == 1
+            and launches["raycast_culled"] == 0,
+            f"recon-sim: one prepass and one walk launch expected: {launches}")
+    require(len(sc.frames) > 0 and min(n_points) > 0, "recon-sim: empty frame")
+    ply = work / "recon_sim" / "recon_dense32" / "combined_pointcloud_with_label.ply"
+    require(ply.is_file(), "recon-sim: labeled PLY missing")
+    label_agree = check_labels(ply, data_root)
+    log(f"[recon-sim] labels agree with cKDTree 1-NN on {label_agree:.5f}")
+    require(label_agree >= 0.999, f"recon-sim: label agreement {label_agree}")
+    hit_frac = sum(n_points) / rays
+    scan = np.concatenate([f.points for f in sc.frames])
+    scan_tls = tls_stats(scan, tls_tree, 100_000, seed=2)
+    log(f"[recon-sim] hit fraction {hit_frac:.4f}; scan points to the TLS cloud "
+        f"{json.dumps(scan_tls)}")
+    require(hit_frac > 0.9, f"recon-sim: hit fraction {hit_frac}")
+    require(scan_tls["mean_m"] < 2 * RECON_VOXEL and scan_tls["p95_m"] < 4 * RECON_VOXEL,
+            f"recon-sim: the scan is off the TLS cloud: {scan_tls}")
+
+    asset = build_scene_asset(v, t, device=device)
+    contract, pairs = check_own_rays(asset, intr, sc, v[t], seed=0, device=device)
+    log(f"[recon-sim] the run's rays cast again reproduce its frames; raycast contract vs "
+        f"oracle {contract}")
+    at_shape, prepass = pair_kernels_at_shape(asset, pairs, "recon_dense32", rays,
+                                              "recon-sim")
+    return dict(launches=launches, wall_s=wall, rays=rays, frames=len(sc.frames),
+                points=n_points, stages=stages, rays_per_s=rate, faces=int(len(t)),
+                hit_fraction=hit_frac, scan_tls=scan_tls, label_agree=label_agree,
+                contract=contract, kernel=at_shape, prepass=prepass)
+
+
+# S3DIS class ids of the simulated labels -> LiDAR-Net ids, by class name.
+def lidar_net_ids(sem: np.ndarray) -> np.ndarray:
+    from ipcgen_tpu_torch.bbox.detection import LIDAR_NET_SEMANTIC_MAPPING
+    from ipcgen_tpu_torch.semantic.annotations import S3DIS_CLASS_IDS
+
+    out = np.zeros_like(sem)
+    for name, ln_id in LIDAR_NET_SEMANTIC_MAPPING.items():
+        if name in S3DIS_CLASS_IDS:
+            out[sem == S3DIS_CLASS_IDS[name]] = ln_id
+    return out
+
+
+def check_box(box: dict, pts64: np.ndarray, device, label: str) -> None:
+    """A box must equal the float64 AABB of its points after the outlier
+    removal, and lie inside the room."""
+    from ipcgen_tpu_torch.ops.outliers import remove_statistical_outliers
+    from ipcgen_tpu_torch.utils.synthetic import ROOM_SIZE
+
+    if len(pts64) >= 20:
+        mask, _ = remove_statistical_outliers(pts64, nb_neighbors=20, std_ratio=2.0,
+                                              device=device)
+        pts64 = pts64[mask]
+    require(np.array_equal(box["min_coords"], pts64.min(axis=0))
+            and np.array_equal(box["max_coords"], pts64.max(axis=0))
+            and box["point_count"] == len(pts64), f"{label}: box differs from float64: {box}")
+    require(np.all(box["min_coords"] >= -0.05)
+            and np.all(box["max_coords"] <= np.asarray(ROOM_SIZE) + 0.05),
+            f"{label}: box outside the room: {box}")
+
+
+def phase_bbox_eval(device, work: Path, card: str) -> dict:
+    """The bbox stage on the preprocess room's annotations and on the recon
+    scan's labeled PLY (its S3DIS class ids written as LiDAR-Net ids), then
+    ``find_best_match`` of the recon scan against a LiDAR-Net layout holding
+    the dense-32 scan of the true mesh (``phase_main_path``): the downstream
+    fidelity metric.  MMD, CD and HD held to float64 on the same subsets."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from ipcgen_tpu_torch.bbox.detection import LiDARNetBBoxVisualizer, S3DISBBoxVisualizer
+    from ipcgen_tpu_torch.eval.evaluate import analyze_point_cloud, find_best_match, \
+        load_point_cloud
+    from ipcgen_tpu_torch.io.ply import read_labeled_ply, write_labeled_ply
+    from ipcgen_tpu_torch.ops import metrics
+
+    room_dir = work / "pre_s3dis" / "Area_1" / "office_1"
+    t0 = time.time()
+    boxes = S3DISBBoxVisualizer(results_root=str(work / "bbox_out" / "s3dis"),
+                                device=device).visualize_room_bboxes(room_dir)
+    s3dis_s = time.time() - t0
+    require(boxes, "bbox: no S3DIS box")
+    for b in boxes:
+        pts = np.loadtxt(room_dir / "Annotations" / b["file_name"], ndmin=2)[:, :3]
+        check_box(b, pts, device, f"S3DIS {b['file_name']}")
+
+    scan_ply = work / "recon_sim" / "recon_dense32" / "combined_pointcloud_with_label.ply"
+    pts, colors, sem, ins = read_labeled_ply(scan_ply)
+    ln_ply = work / "ln_scan" / "Area_1_office_1.ply"
+    ln_ply.parent.mkdir(parents=True)
+    write_labeled_ply(ln_ply, pts, colors, lidar_net_ids(sem), ins)
+    t0 = time.time()
+    ln_vis = LiDARNetBBoxVisualizer(results_root=str(work / "bbox_out" / "lidar_net"),
+                                    device=device)
+    ln_boxes = ln_vis.process_room_instances(ln_ply)
+    ln_s = time.time() - t0
+    require(ln_boxes, "bbox: no LiDAR-Net box")
+    ln_sem = lidar_net_ids(sem)
+    for b in ln_boxes:
+        sel = (ln_sem == b["semantic_id"]) & (ins == b["instance_id"])
+        check_box(b, pts[sel].astype(np.float64), device,
+                  f"LiDAR-Net {b['object_name']} {b['instance_id']}")
+    log(f"[bbox] {len(boxes)} S3DIS boxes in {s3dis_s:.2f} s, {len(ln_boxes)} LiDAR-Net boxes "
+        f"from the recon scan in {ln_s:.2f} s; each equal to a float64 AABB of its points "
+        f"and inside the room")
+
+    # The downstream fidelity metric: the recon scan against the scan of
+    # the true mesh, as a LiDAR-Net scene.
+    true_dir = work / "lidar_net" / "synth_dense32"
+    true_dir.mkdir(parents=True)
+    shutil.copyfile(work / "out" / "synth_dense32" / "combined_pointcloud_with_label.ply",
+                    true_dir / "synth_dense32.ply")
+    t0 = time.time()
+    match = find_best_match(str(scan_ply), str(work / "lidar_net"), device=device)
+    match_s = time.time() - t0
+    require(match is not None and match["lidar_net_scene"] == "synth_dense32",
+            f"eval: no match: {match}")
+    log(f"[eval] find_best_match in {match_s:.2f} s: "
+        f"{json.dumps({k: v for k, v in match.items() if not isinstance(v, str)})}")
+
+    x = analyze_point_cloud(load_point_cloud(str(scan_ply)), "S3DIS")["normalized_points"]
+    y = analyze_point_cloud(load_point_cloud(str(true_dir / "synth_dense32.ply")),
+                            "LiDAR-Net")["normalized_points"]
+    held = {}
+    for name, n in (("mmd", 10_000), ("cd", 5000), ("hd", 3000)):
+        rng = np.random.default_rng(7)
+        xs, ys = (metrics.sample_points(c, n, rng).astype(np.float32) for c in (x, y))
+        xd, yd = (torch.from_numpy(c).to(device) for c in (xs, ys))
+        x64, y64 = xs.astype(np.float64), ys.astype(np.float64)
+        if name == "mmd":
+            got = metrics.compute_mmd(x, y, n, rng=np.random.default_rng(7), device=device)
+            ms = time_ms(lambda: metrics._mmd_core(xd, yd, 1.0), 3)
+
+            def kmean(a, b):
+                return sum(np.exp(-((a[i:i + 500, None, :] - b[None]) ** 2).sum(-1)).sum()
+                           for i in range(0, len(a), 500)) / (len(a) * len(b))
+            want = kmean(x64, x64) + kmean(y64, y64) - 2 * kmean(x64, y64)
+            err, ok = abs(got - want), abs(got - want) <= 1e-6
+        else:
+            fn = metrics.compute_chamfer_distance if name == "cd" else \
+                metrics.compute_hausdorff_distance
+            got = fn(x, y, n, rng=np.random.default_rng(7), device=device)
+            ms = time_ms(lambda: (metrics._directed_min_dists(xd, yd).sum()
+                                  + metrics._directed_min_dists(yd, xd).sum()), 5)
+            d_xy = cKDTree(y64).query(x64, workers=-1)[0]
+            d_yx = cKDTree(x64).query(y64, workers=-1)[0]
+            want = d_xy.mean() + d_yx.mean() if name == "cd" else max(d_xy.max(), d_yx.max())
+            err = abs(got - want) / want
+            ok = err <= 1e-4
+        pairs = len(xs) * len(ys) * (3 if name == "mmd" else 2)
+        held[name] = dict(points=n, value=got, float64=float(want), err=float(err), ms=ms,
+                          pairs=pairs)
+        log(f"[eval] {name} ({n} points): {got:.8f} vs float64 {want:.8f} "
+            f"({'abs' if name == 'mmd' else 'rel'} err {err:.3e}); {ms:.3f} ms on {card}")
+        require(ok, f"eval: {name} off float64: {held[name]}")
+    return dict(s3dis_boxes=len(boxes), lidar_net_boxes=len(ln_boxes), s3dis_box_s=s3dis_s,
+                lidar_net_box_s=ln_s, match={k: v for k, v in match.items()
+                                             if not isinstance(v, str)},
+                match_s=match_s, metrics=held)
+
+
 def main() -> int:
     import torch
 
@@ -1269,11 +1675,23 @@ def main() -> int:
     try:
         runs, culled, occupancy, batch = phase_main_path(device, work, card)
         preprocess = phase_preprocess(device, work, card)
+        tls_tree = tls_tree_of(work)
+        recon = phase_recon(device, work, card, tls_tree)
+        runs["recon_dense32"] = phase_recon_sim(device, work, card, tls_tree)
+        bbox_eval = phase_bbox_eval(device, work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[summary] batch {json.dumps({k: v for k, v in batch.items() if k != 'rooms'})}; "
         f"preprocess warm spans {json.dumps(preprocess['runs'][-1]['spans'])}")
+    log(f"[summary] recon warm {json.dumps(recon['runs'][-1]['variants'])}; splat and "
+        f"marching {json.dumps(recon['timing'])}")
+    rs = runs["recon_dense32"]
+    log(f"[summary] recon mesh scan: {rs['faces']} faces, {rs['rays']} rays, "
+        f"{rs['rays_per_s']:.0f} rays/s, stages {json.dumps(rs['stages'])}; bbox and eval "
+        f"{json.dumps(bbox_eval)}")
 
+    # Every main-path run: the two pair runs of phase_main_path and the
+    # scan of the recon mesh.
     launches = sum(r["launches"]["raycast_pairs"] for r in runs.values())
     prepass_launches = sum(r["launches"]["raycast_pairs_prepass"] for r in runs.values())
     at_shape = runs["blk2go"]["kernel"]  # the default profile

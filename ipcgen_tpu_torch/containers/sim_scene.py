@@ -14,10 +14,14 @@ that reached JAX or matplotlib replaced:
   viridis table.
 
 The JAX package swallows every exception on the label path and falls back to
-default labels.  Here a failure propagates: a broken file, grid or kernel can
-never turn into a labeled PLY full of default labels.  Default labels remain
-only for a scene without annotation data (no data root, area or room, or a
-room with no annotation rows), as in the reference.  A batch run can
+default labels.  Here the boundary is the data, not the exception: a scene
+without annotation data gets default labels, as in the JAX package (no data
+root, area or room; a room with no ``Annotations/`` directory, which prints a
+warning; or a room with no annotation rows), and a room with no raw cloud
+gets grey colours with its annotation labels (also with a warning).  A file
+that exists but cannot be read, and any failure of the port's own compute
+(the grid, the 1-NN, a kernel), propagates: it can never turn into a labeled
+PLY full of default labels.  A batch run can
 start a room's prefetch ahead of its sim stage (``prewarm_labels``); the
 simulator's ``load_scene`` claims it (``claim_prewarmed_labels``).
 """
@@ -148,6 +152,11 @@ def load_room_label_data(s3dis_data_root, area, room, host_only_nn=False,
         spans = {}
     if not s3dis_data_root or not area or not room:
         return None, None, None, None
+    ann_dir = os.path.join(s3dis_data_root, area, room, "Annotations")
+    if not os.path.isdir(ann_dir):
+        print(f"[Labels] warning: {ann_dir} does not exist; {area}/{room} gets default "
+              "colours and labels", flush=True)
+        return None, None, None, None
     loader = S3DISAnnotationLoader(s3dis_data_root, verbose=False)
     t0 = time.time()
     room_annotations = loader.load_room_annotations(area, room)
@@ -167,6 +176,8 @@ def load_room_label_data(s3dis_data_root, area, room, host_only_nn=False,
     )
     spans["raw_parse"] = time.time() - t0
     if original_points is None or original_colors is None:
+        print(f"[Labels] warning: {area}/{room} has no raw cloud; its annotation points "
+              "get grey colours", flush=True)
         colors = np.ones((len(points), 3), dtype=np.float32) * 0.5
     else:
         oc = np.asarray(original_colors)

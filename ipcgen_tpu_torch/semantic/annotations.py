@@ -85,37 +85,37 @@ class S3DISAnnotationLoader:
         return room_annotations
 
     def _load_annotation_file(self, file_path: str) -> np.ndarray:
-        """Tolerant parse of 'x y z [r g b ...]' rows (reference: :112-142)."""
-        try:
-            from ipcgen_tpu_torch.utils import native
+        """Tolerant parse of 'x y z [r g b ...]' rows (reference: :112-142).
 
-            data = native.parse_float_table(file_path)
-            if data is not None and data.ndim == 2 and data.shape[1] >= 3:
-                return data[:, :3].astype(np.float64)
-            try:
-                data = np.loadtxt(file_path, usecols=(0, 1, 2), comments="#", ndmin=2)
-                return data[:, :3].astype(np.float64)
-            except Exception:
-                pass
-            # Row-tolerant fallback for malformed lines.
-            points = []
-            with open(file_path, "r") as f:
-                for line in f:
-                    line = line.strip()
-                    if not line or line.startswith("#"):
+        Rows that do not parse are skipped, as in the reference; a file that
+        cannot be read as text raises (the JAX package logs it and drops the
+        instance)."""
+        from ipcgen_tpu_torch.utils import native
+
+        data = native.parse_float_table(file_path)
+        if data is not None and data.ndim == 2 and data.shape[1] >= 3:
+            return data[:, :3].astype(np.float64)
+        try:
+            data = np.loadtxt(file_path, usecols=(0, 1, 2), comments="#", ndmin=2)
+            return data[:, :3].astype(np.float64)
+        except ValueError:
+            pass
+        # Row-tolerant fallback for malformed lines.
+        points = []
+        with open(file_path, "r") as f:
+            for line in f:
+                line = line.strip()
+                if not line or line.startswith("#"):
+                    continue
+                coords = line.split()
+                if len(coords) >= 3:
+                    try:
+                        points.append(
+                            [float(coords[0]), float(coords[1]), float(coords[2])]
+                        )
+                    except ValueError:
                         continue
-                    coords = line.split()
-                    if len(coords) >= 3:
-                        try:
-                            points.append(
-                                [float(coords[0]), float(coords[1]), float(coords[2])]
-                            )
-                        except ValueError:
-                            continue
-            return np.array(points) if points else np.zeros((0, 3))
-        except Exception as e:  # pragma: no cover - IO edge case
-            self._log(f"    - Warning: failed to load {file_path}: {e}")
-            return np.zeros((0, 3))
+        return np.array(points) if points else np.zeros((0, 3))
 
     def create_labeled_pointcloud(
         self, room_annotations: Dict[str, np.ndarray]

@@ -76,9 +76,7 @@ def test_main_skip_resume_matches_jax(tmp_path, monkeypatch):
     runs = {}
     for name, pkg, extra in (("jax", jsim, {}), ("port", psim, {"device": "cpu"})):
         out = tmp_path / name
-        # No data root: default labels on both sides (the port raises where
-        # a named root lacks the room's annotations; the JAX package writes
-        # default labels there too).
+        # No data root: default labels on both sides.
         kw = dict(reconstruction_dir=str(recon), output_base_dir=str(out),
                   s3dis_data_root="", **SCAN, **extra)
         first = pkg.main(**kw)
@@ -127,6 +125,54 @@ def test_async_and_sync_export_write_the_same_files(tmp_path):
     assert len(np.unique(sem)) > 3  # the golden room's labels
     for _, scene in asyn["successful"]:
         assert scene.save_future.done() and "save" in scene.profile
+
+
+def test_missing_annotations_give_default_labels_as_in_jax(tmp_path, monkeypatch):
+    """A data root whose second room has its raw cloud but no
+    ``Annotations/``: both packages count both scenes done, and that room's
+    labeled PLY carries default labels (0) and grey colours on both sides;
+    the annotated room's labels are the same classes in the same shares
+    within 1 % (the two scans differ at silhouette edges)."""
+    monkeypatch.chdir(tmp_path)
+    recon = make_recon(tmp_path, widths=(4.0, 4.0))
+    root = tmp_path / "s3dis"
+    shutil.copytree(GOLDEN / "Area_1" / "office_1", root / "Area_1" / "office_1")
+    (root / "Area_1" / "office_2").mkdir(parents=True)
+    shutil.copyfile(GOLDEN / "Area_1" / "office_1" / "office_1.txt",
+                    root / "Area_1" / "office_2" / "office_2.txt")
+    runs = {}
+    for name, pkg, extra in (("jax", jsim, {}), ("port", psim, {"device": "cpu"})):
+        runs[name] = pkg.main(reconstruction_dir=str(recon), output_base_dir=str(tmp_path / name),
+                              s3dis_data_root=str(root), **SCAN, **extra)
+    assert names(runs["port"]) == names(runs["jax"]) == (list(ROOMS), [], [])
+    labeled = {name: [read_labeled_ply(tmp_path / name / room
+                                       / "combined_pointcloud_with_label.ply")
+                      for room in ROOMS] for name in runs}
+    for name in runs:
+        _, colors, sem, ins = labeled[name][1]
+        assert not sem.any() and not ins.any(), name
+        assert len(np.unique(colors, axis=0)) == 1, name
+    np.testing.assert_array_equal(labeled["port"][1][1][0], labeled["jax"][1][1][0])
+    (_, _, s_p, _), (_, _, s_j, _) = labeled["port"][0], labeled["jax"][0]
+    assert len(np.unique(s_p)) > 3 and np.array_equal(np.unique(s_p), np.unique(s_j))
+    for c in np.unique(s_j):
+        assert abs((s_p == c).mean() - (s_j == c).mean()) <= 0.01, c
+
+
+def test_unreadable_annotation_file_fails_its_scene(tmp_path):
+    """An annotation file that exists but cannot be read is an error, not
+    missing data: the port fails the scene (the JAX package writes default
+    labels)."""
+    recon = make_recon(tmp_path, ROOMS[:1])
+    root = tmp_path / "s3dis"
+    shutil.copytree(GOLDEN / "Area_1" / "office_1", root / "Area_1" / "office_1")
+    (root / "Area_1" / "office_1" / "Annotations" / "chair_1.txt").write_bytes(
+        bytes(range(128, 256)) * 16)
+    res = psim.main(reconstruction_dir=str(recon), output_base_dir=str(tmp_path / "out"),
+                    s3dis_data_root=str(root), device="cpu",
+                    **dict(SCAN, lidar_horizontal_res=64))
+    assert names(res) == ([], [], [ROOMS[0]])
+    assert "decode" in res["failed"][0][1]
 
 
 def test_export_failure_fails_its_scene(tmp_path, monkeypatch):

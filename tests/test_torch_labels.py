@@ -7,6 +7,7 @@ two nearest references lie within 1e-9 m^2 of each other may resolve to
 either (the float32 distance sums round in a different order).
 """
 
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -92,7 +93,18 @@ def test_room_label_data_matches_jax():
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
-def test_room_label_data_missing_room_raises():
-    """The port's loader does not turn a broken data root into defaults."""
-    with pytest.raises(FileNotFoundError):
-        load_room_label_data(str(GOLDEN), "Area_1", "no_such_room")
+def test_room_label_data_missing_room_raises(tmp_path, capsys):
+    """A room with no ``Annotations/`` directory has no annotation data: four
+    Nones (default labels) and a warning, as the JAX package gives.  An
+    annotation file that exists but cannot be read still raises: the port's
+    loader does not turn a broken file into defaults."""
+    from ipcgen_tpu.containers.sim_scene import load_room_label_data as jax_load
+
+    got = load_room_label_data(str(GOLDEN), "Area_1", "no_such_room")
+    assert got == (None,) * 4 == jax_load(str(GOLDEN), "Area_1", "no_such_room")
+    assert "warning" in capsys.readouterr().out
+    room = tmp_path / "Area_1" / "office_1"
+    shutil.copytree(GOLDEN / "Area_1" / "office_1", room)
+    (room / "Annotations" / "chair_1.txt").write_bytes(bytes(range(128, 256)) * 16)
+    with pytest.raises(UnicodeDecodeError):
+        load_room_label_data(str(tmp_path), "Area_1", "office_1", device="cpu")

@@ -4,9 +4,10 @@ four, imports ``ipcgen_tpu_torch`` and runs the sim stage on the CPU through
 the port's public entry point, then again through the config tree
 (``PipelineConfig.from_dict`` with ``simulation.backend: pallas``, the culled
 path), as ``chip_smoke.py`` does on the card; then the batch entry point ``main``
-with the asynchronous export, and ``preprocess_room``.  A source scan keeps every
-``import`` of jax or of ``ipcgen_tpu`` out of the package and
-``chip_smoke.py``."""
+with the asynchronous export, ``preprocess_room``, ``reconstruct_room`` on its
+pickle, ``find_best_match`` and the LiDAR-Net boxes on the scans.  A source scan
+keeps every ``import`` of jax or of ``ipcgen_tpu`` out of the package and
+``chip_smoke.py``, and every import of matplotlib or yaml inside a function."""
 
 import os
 import re
@@ -83,6 +84,31 @@ SCRIPT = textwrap.dedent("""
                            seed=0, device="cpu")
     assert room["normals"].shape == room["points"].shape and len(room["points"]) > 10000
     assert Path(room["output_path"]).is_file()
+
+    # Recon on that pickle, then eval and bbox on the scans.
+    import random
+
+    from ipcgen_tpu_torch.bbox.detection import LiDARNetBBoxVisualizer
+    from ipcgen_tpu_torch.eval.evaluate import find_best_match
+    from ipcgen_tpu_torch.recon.cli import reconstruct_room
+
+    cfg = {"nksr": {"voxel_size": 0.1}, "visualization": {"save_visualizations": False},
+           "evaluation": {"compute_chamfer": True, "compute_mesh_quality": True,
+                          "max_eval_points": 5000}}
+    rec = reconstruct_room(room["output_path"], cfg, str(out / "recon_out"), device="cpu")
+    assert "error" not in rec["dense"], rec
+    assert rec["dense"]["reconstruction_stats"]["output_faces"] > 1000
+    assert rec["dense"]["quality_metrics"]["chamfer_distance"] < 0.1
+    scan = out / "office_1" / "combined_pointcloud_with_label.ply"
+    lidar_net = out / "lidar_net" / "culled_scan"
+    lidar_net.mkdir(parents=True)
+    (lidar_net / "culled_scan.ply").write_bytes(
+        (out / "culled" / "combined_pointcloud.ply").read_bytes())
+    match = find_best_match(str(scan), str(out / "lidar_net"), max_points=2000,
+                            rng=random.Random(0), device="cpu")
+    assert match["lidar_net_scene"] == "culled_scan" and 0 < match["cd"] < 0.5, match
+    LiDARNetBBoxVisualizer(results_root=str(out / "boxes"), device="cpu") \
+        .process_room_instances(scan)
     assert all(sys.modules[n] is None for n in BLOCKED)
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED + ("jaxlib",)
               and sys.modules[m] is not None]
@@ -120,6 +146,16 @@ def test_no_jax_import_in_port_sources():
 
 def test_no_jax_package_import_in_port_sources():
     assert not offenders(JAX_PACKAGE_IMPORT)
+
+
+# An import at the start of a line runs when the module is imported.
+TOP_LEVEL_OPTIONAL = re.compile(r"^(import|from)\s+(matplotlib|yaml)\b", re.M)
+
+
+def test_matplotlib_and_yaml_only_inside_functions():
+    assert not offenders(TOP_LEVEL_OPTIONAL)
+    assert TOP_LEVEL_OPTIONAL.search("import matplotlib\n")
+    assert not TOP_LEVEL_OPTIONAL.search("    import matplotlib\n")
 
 
 @pytest.mark.parametrize("line, hit", [
