@@ -127,6 +127,31 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    holding phase 4's dense-32 scan of the true mesh; MMD (10 k), CD (5 k)
    and HD (3 k) against float64 on the same subsets (MMD 1e-6 absolute,
    CD and HD 1e-4 relative), each timed.
+14. the culled kernel on the dense 32-line main-room run (``backend:
+   pallas``, inside phase 6's step): one launch, every frame within 1 % of
+   the pair kernel's dense-32 run, stage seconds and rays per second.
+15. the pipeline driver (``phase_pipeline``): ``run_pipeline.run`` over two
+   S3DIS-layout rooms from ``bench_pipeline.synth_room`` (600 k shell points
+   each) with the shipped config's values (voxel 0.03, BLK2GO, 20
+   waypoints), figures off, and each room's TLS cloud as a LiDAR-Net scene
+   for the eval stage: all five stages done for both rooms, one prepass and
+   one walk launch a room, a second call that skips every stage, each
+   labeled PLY walked by the release gate's reference reader; stage seconds
+   and rooms per hour.
+16. the release gate (``phase_release_gate``): ``release_gate_lroom.run_gate``
+   on tests/fixtures/golden_room_l, two passes, its parity checks, cold and
+   steady seconds; one prepass and one walk launch a pass.
+17. the multi-device paths (``phase_multidevice``): an NCCL group of one rank
+   through a ``FileStore``; ``scan_waypoints_sharded`` of the main room
+   (BLK2GO, 20 waypoints) on the pair and the culled kernel, equal to
+   ``scan_waypoints`` bit for bit; the triangle-sharded raycast of all its
+   rays with S = 2 and 4 shard-local launches combined in this process
+   (``parallel.shard``'s pieces), the culled kernel's equal bit for bit to
+   the unsharded kernel, the pair kernel's held to the raycast contract;
+   ``run_scenes_device_parallel`` on [cuda:0, cuda:0] over phase 9's two
+   rooms, their clouds equal byte for byte to the sequential ``main``'s;
+   ``sharded_grid_nn`` of scan points into the TLS cloud equal to the
+   one-card 1-NN; the dry run (``parallel.dryrun``) at world size 1.
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the fp32 operations these rays need: the FMA
@@ -138,12 +163,17 @@ per clock at the maximum SM clock).  The prepass's row also carries
 as the kernel's do, and ``bound_two_level_ms``, the two-level kernel's count
 (every ray against every group, then the blocks of hit groups, at 33 slots
 a test).
-The second-to-last line is the kernels' JSON record, the last line
+Every sim-stage call passes ``save_visualizations=False``: the card's host
+has no matplotlib, and a figure asked for there raises.
+The second-to-last line is the kernels' JSON record (each kernel's
+``launches`` summed over the paths that ran it, ``launches_by_path`` each
+path's own count), the last line
 ``{"ok": true, "device": {...}}``.  Needs ``torch.cuda.is_available()``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import shutil
@@ -827,7 +857,8 @@ def phase_main_path(device, work: Path, card: str):
             str(mesh_path), scene_name=f"synth_{profile}", num_waypoints=20,
             output_base_dir=str(work / "out"), use_blk2go=profile == "blk2go",
             use_dense_lidar=profile == "dense32", s3dis_data_root=str(data_root),
-            area="Area_1", room="office_1", seed=0, device=device,
+            area="Area_1", room="office_1", seed=0, save_visualizations=False,
+            device=device,
         )
         sync(device)
         wall = time.time() - t0
@@ -863,6 +894,8 @@ def phase_main_path(device, work: Path, card: str):
     occupancy = check_occupancy(asset, v, t)
     culled = phase_culled_main_path(device, work, card, mesh_path, data_root,
                                     asset, runs["blk2go"])
+    culled["dense32"] = culled_dense32_run(device, work, card, mesh_path, data_root,
+                                           runs["dense32"])
     del asset
     batch = phase_batch(device, work, card, mesh_path, data_root)
     return runs, culled, occupancy, batch
@@ -957,7 +990,8 @@ def phase_culled_main_path(device, work: Path, card: str, mesh_path: Path,
                          use_dense_lidar=tree.simulation.use_dense_lidar, device=device)
     out_dir = work / "out" / "synth_culled"
     sc = sim.run_auto_simulation(str(mesh_path), num_waypoints=20,
-                                 output_dir=out_dir, scene_name="synth_culled")
+                                 output_dir=out_dir, scene_name="synth_culled",
+                                 save_visualizations=False)
     sync(device)
     wall = time.time() - t0
     launches = dict(_kernels.LAUNCHES)
@@ -1047,6 +1081,51 @@ def phase_culled_main_path(device, work: Path, card: str, mesh_path: Path,
                 full_scan_bound=full_bound)
 
 
+def culled_dense32_run(device, work: Path, card: str, mesh_path: Path, data_root: Path,
+                       pair_run: dict) -> dict:
+    """The dense 32-line run of the main room on the culled kernel
+    (``backend: pallas``): one launch, every frame within 1 % of the pair
+    kernel's run of the same rays, its stage seconds beside that run's."""
+    from ipcgen_tpu_torch.config import PipelineConfig
+    from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.sim.simulator import S3DISSimulator
+    from ipcgen_tpu_torch.utils.device import sync
+
+    tree = PipelineConfig.from_dict({
+        "simulation": {"backend": "pallas", "use_blk2go": False, "use_dense_lidar": True,
+                       "seed": 0},
+        "data": {"data_root": str(data_root), "area_name": "Area_1",
+                 "room_name": "office_1"},
+    })
+    for k in _kernels.LAUNCHES:
+        _kernels.LAUNCHES[k] = 0
+    t0 = time.time()
+    sim = S3DISSimulator(tree.simulator_config(), use_blk2go=False, use_dense_lidar=True,
+                         device=device)
+    sc = sim.run_auto_simulation(str(mesh_path), num_waypoints=20,
+                                 output_dir=work / "out" / "synth_culled_dense32",
+                                 scene_name="synth_culled_dense32", save_visualizations=False)
+    sync(device)
+    wall = time.time() - t0
+    launches = dict(_kernels.LAUNCHES)
+    n_points = [len(f.points) for f in sc.frames]
+    rays = len(sc.frames) * sim.lidar_config.get_total_points_per_scan()
+    stages = {k: round(float(v), 4) for k, v in sorted(sc.profile.items())}
+    rate = rays / (stages["dispatch"] + stages["scan_exec"])
+    want = pair_run["points"]
+    frame_dev = max(abs(a - b) / b for a, b in zip(n_points, want))
+    log(f"[culled-dense32] {len(sc.frames)} frames, {rays} rays, {sum(n_points)} points "
+        f"(pair run {sum(want)}, max frame deviation {frame_dev:.2e}), {wall:.2f} s wall, "
+        f"launches {launches}; stage seconds on {card}: {json.dumps(stages)}; "
+        f"{rate:.0f} rays/s over dispatch + scan_exec")
+    require(launches["raycast_culled"] == 1 and launches["raycast_pairs"] == 0,
+            f"culled dense-32 launches {launches}")
+    require(len(n_points) == len(want) and frame_dev <= 0.01,
+            f"culled dense-32 vs the pair run: {n_points} vs {want}")
+    return dict(launches=launches, wall_s=wall, rays=rays, points=n_points, stages=stages,
+                rays_per_s=rate)
+
+
 # ---------------------------------------------------------------------------
 # The batch entry point (sim.simulator.main)
 # ---------------------------------------------------------------------------
@@ -1075,7 +1154,8 @@ def phase_batch(device, work: Path, card: str, mesh_path: Path, data_root: Path)
 
     out = work / "batch_out"
     kw = dict(num_waypoints=20, output_base_dir=str(out), use_blk2go=True,
-              s3dis_data_root=str(data_root), async_export=True, device=device)
+              s3dis_data_root=str(data_root), async_export=True,
+              save_visualizations=False, device=device)
     prewarmed = {room: prewarm_labels(str(data_root), "Area_1", room, device=device)
                  for room in rooms.values()}
     for k in _kernels.LAUNCHES:
@@ -1462,7 +1542,7 @@ def phase_recon_sim(device, work: Path, card: str, tls_tree) -> dict:
         str(mesh_path), scene_name="recon_dense32", num_waypoints=20,
         output_base_dir=str(work / "recon_sim"), use_blk2go=False, use_dense_lidar=True,
         s3dis_data_root=str(data_root), area="Area_1", room="office_1", seed=0,
-        device=device)
+        save_visualizations=False, device=device)
     sync(device)
     wall = time.time() - t0
     launches = dict(_kernels.LAUNCHES)
@@ -1636,6 +1716,338 @@ def phase_bbox_eval(device, work: Path, card: str) -> dict:
                                              if not isinstance(v, str)},
                 match_s=match_s, metrics=held)
 
+# ---------------------------------------------------------------------------
+# The pipeline driver, the release gate, the multi-device paths
+# ---------------------------------------------------------------------------
+PIPELINE_ROOMS = ("office_1", "office_2")
+# The function each stage of run_pipeline.run calls, by module and name
+# (run imports them at call time, so a wrapper set here is the one it calls).
+PIPELINE_STAGE_CALLS = (
+    ("preprocess", "ipcgen_tpu_torch.preprocess.loader", "preprocess_room"),
+    ("recon", "ipcgen_tpu_torch.recon.cli", "reconstruct_room"),
+    ("sim", "ipcgen_tpu_torch.sim.simulator", "run_single_scene_simulation"),
+    ("bbox", "ipcgen_tpu_torch.bbox.detection", "S3DISBBoxVisualizer.visualize_room_bboxes"),
+    ("eval", "ipcgen_tpu_torch.eval.evaluate", "find_best_match"),
+)
+
+
+@contextlib.contextmanager
+def stage_seconds(device, sink: dict):
+    """Append the seconds of every call of a pipeline stage's function to
+    ``sink[stage]`` (each call ends with a barrier on ``device``)."""
+    import importlib
+
+    from ipcgen_tpu_torch.utils.device import sync
+
+    saved = []
+    for stage, module, name in PIPELINE_STAGE_CALLS:
+        owner = importlib.import_module(module)
+        if "." in name:
+            cls, name = name.split(".")
+            owner = getattr(owner, cls)
+        fn = getattr(owner, name)
+
+        def timed(*args, _fn=fn, _stage=stage, **kwargs):
+            t0 = time.time()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                sync(device)
+                sink.setdefault(_stage, []).append(time.time() - t0)
+
+        saved.append((owner, name, fn))
+        setattr(owner, name, timed)
+    try:
+        yield sink
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def phase_pipeline(device, work: Path, card: str) -> dict:
+    """``run_pipeline.run`` over two rooms in S3DIS layout made by
+    ``bench_pipeline.synth_room`` (600 k shell points each), with the shipped
+    config's values (``PipelineConfig``'s defaults: voxel 0.03, BLK2GO, 20
+    waypoints) and the figures off; each room's TLS cloud is also a LiDAR-Net
+    scene for the eval stage.  All five stages must be done for both rooms,
+    with one prepass and one walk launch a room; a second call must skip
+    every stage; each labeled PLY must pass the reference byte walk."""
+    import os
+
+    from ipcgen_tpu_torch.bench_pipeline import synth_room
+    from ipcgen_tpu_torch.config import PipelineConfig
+    from ipcgen_tpu_torch.io.ply import write_labeled_ply
+    from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.release_gate_lroom import reference_read_labeled_ply
+    from ipcgen_tpu_torch.run_pipeline import STAGES, run
+    from ipcgen_tpu_torch.containers.sim_scene import _load_room_txt_pointcloud
+    from ipcgen_tpu_torch.utils.device import sync
+
+    root = work / "pipeline"
+    rng = np.random.default_rng(0)
+    t0 = time.time()
+    sizes = {room: synth_room(root / "data", "Area_1", room, rng) for room in PIPELINE_ROOMS}
+    for room in PIPELINE_ROOMS:
+        cloud, _ = _load_room_txt_pointcloud(str(root / "data" / "Area_1" / room / f"{room}.txt"))
+        cloud = cloud[::6].astype(np.float32)
+        n = len(cloud)
+        write_labeled_ply(root / "sim" / f"tls_{room}" / f"tls_{room}.ply", cloud,
+                          np.full((n, 3), 128, np.uint8), np.zeros(n, np.uint16),
+                          np.zeros(n, np.uint16))
+    log(f"[pipeline] two synthetic rooms ({sizes}) written in {time.time() - t0:.1f} s")
+    cfg = PipelineConfig()
+    cfg.data.data_root = str(root / "data")
+    cfg.data.output_root = str(root / "outputs")
+    cfg.data.area_name = "Area_1"
+    cfg.data.room_name = None  # every room of the area
+    cfg.simulation.output_base_dir = str(root / "sim")
+    cfg.simulation.save_visualizations = False
+    cwd = os.getcwd()
+    os.chdir(root)  # the eval stage writes ./evaluation_results
+    try:
+        for k in _kernels.LAUNCHES:
+            _kernels.LAUNCHES[k] = 0
+        t0 = time.time()
+        with stage_seconds(device, {}) as stages:
+            report = run(cfg, STAGES, device=device)
+        sync(device)
+        wall = time.time() - t0
+        launches = dict(_kernels.LAUNCHES)
+        again = run(cfg, STAGES, device=device)
+    finally:
+        os.chdir(cwd)
+    scenes = [f"Area_1_{room}" for room in PIPELINE_ROOMS]
+    log(f"[pipeline] {json.dumps(report['rooms'])}; {wall:.2f} s wall, "
+        f"{report['rooms_per_hour']:.1f} rooms/hour on {card}; launches {launches}")
+    log(f"[pipeline] stage seconds, room by room, on {card}: "
+        f"{json.dumps({k: [round(x, 3) for x in v] for k, v in stages.items()})}")
+    for scene in scenes:
+        entry = report["rooms"][scene]
+        require(all(entry.get(st, "").startswith("done") for st in STAGES),
+                f"pipeline: {scene} {entry}")
+        require(all(again["rooms"][scene][st].startswith("skipped") for st in STAGES),
+                f"pipeline rerun: {scene} {again['rooms'][scene]}")
+    n = len(scenes)
+    require(launches["raycast_pairs"] == n and launches["raycast_pairs_prepass"] == n
+            and launches["raycast_culled"] == 0,
+            f"pipeline: one prepass and one walk launch a room expected: {launches}")
+    labeled = {}
+    for scene in scenes:
+        t0 = time.time()
+        data = reference_read_labeled_ply(root / "sim" / scene /
+                                          "combined_pointcloud_with_label.ply")
+        labeled[scene] = int(len(data["xyz"]))
+        require(labeled[scene] > 100_000 and len(np.unique(data["sem"])) > 2,
+                f"pipeline: {scene} labeled PLY {labeled[scene]} points")
+        log(f"[pipeline] {scene}: the reference reader walked {labeled[scene]} labeled "
+            f"points in {time.time() - t0:.1f} s")
+    require(all(len(stages.get(st, ())) == len(scenes) for st in STAGES),
+            f"pipeline: stage calls {stages}")
+    return dict(wall_s=wall, rooms_per_hour=report["rooms_per_hour"], stage_seconds=stages,
+                total_seconds=report["total_seconds"], launches=launches,
+                labeled_points=labeled, room_points=sizes)
+
+
+def phase_release_gate(device, work: Path, card: str) -> dict:
+    """``release_gate_lroom.run_gate``: the five stages on
+    tests/fixtures/golden_room_l, two passes, with its parity checks."""
+    from ipcgen_tpu_torch.release_gate_lroom import run_gate
+
+    t0 = time.time()
+    gate = run_gate(passes=2, device=device, root=work)
+    log(f"[gate] parity {gate['parity']}, {gate['labeled_points']} labeled points, "
+        f"{gate['detection_objects']} boxes; on {card}: cold "
+        f"{json.dumps(gate['stage_seconds_cold'])} ({gate['total_seconds_cold']:.2f} s), "
+        f"steady {json.dumps(gate['stage_seconds_steady'])} "
+        f"({gate['total_seconds_steady']:.2f} s); {time.time() - t0:.1f} s in all")
+    return gate
+
+
+SHARDS = (2, 4)
+
+
+def pairs_agreement(t_a, s_a, p_a, t_b, s_b, p_b) -> dict:
+    """The raycast contract between two pair-kernel runs of the same rays:
+    hit masks and slots agree, hit-point error p99 and the share over 5 cm
+    (a silhouette graze, at most 0.1 %)."""
+    hit_a, hit_b = s_a >= 0, s_b >= 0
+    both = hit_a & hit_b
+    err = (p_a[both] - p_b[both]).norm(dim=1)
+    require(err.numel() > 0, "pair shards: no ray hit on both sides")
+    return dict(hit_agree=float((hit_a == hit_b).float().mean()),
+                same_slot=float((s_a[both] == s_b[both]).float().mean()),
+                p99_mm=float(err.quantile(0.99) * 1e3), max_mm=float(err.max() * 1e3),
+                over_5cm_frac=float((err > 0.05).float().mean()))
+
+
+def phase_multidevice(device, work: Path, card: str) -> dict:
+    """The multi-device paths on the card: an NCCL group of one rank through
+    a ``FileStore``; ``scan_waypoints_sharded`` of the main room (BLK2GO, 20
+    waypoints, 40 poses: 2.56 M rays) on the pair and culled kernels, equal to ``scan_waypoints``
+    bit for bit; the triangle-sharded raycast of all its rays with S = 2 and
+    4 shard-local launches combined in this process, equal to the unsharded
+    culled kernel bit for bit (the pair kernel: to the raycast contract);
+    ``run_scenes_device_parallel`` on [cuda:0, cuda:0] over the two-room
+    batch, equal to the sequential ``main`` of ``phase_batch``;
+    ``sharded_grid_nn`` equal to the one-card 1-NN; the dry run."""
+    import torch
+    import torch.distributed as dist
+
+    from ipcgen_tpu_torch.containers.mesh import TriMesh
+    from ipcgen_tpu_torch.models.lidar_intrinsics import DualAxisLidarIntrinsics
+    from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.ops.grid_nn import nearest_neighbor_indices_grid
+    from ipcgen_tpu_torch.ops.raycast import finalize_result
+    from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
+    from ipcgen_tpu_torch.parallel import dryrun, shard
+    from ipcgen_tpu_torch.sim.scan import scan_rays, scan_waypoints
+    from ipcgen_tpu_torch.sim.simulator import find_available_scenes, run_scenes_device_parallel
+    from ipcgen_tpu_torch.utils.device import sync
+
+    def reset():
+        for k in _kernels.LAUNCHES:
+            _kernels.LAUNCHES[k] = 0
+
+    dryrun.init_group("nccl", str(work / "nccl_store"), 1, 0)
+    try:
+        mesh = shard.make_device_mesh()
+        log(f"[multi] NCCL group of {dist.get_world_size()} rank through a FileStore; "
+            f"mesh {mesh}")
+        mesh_tri = TriMesh.load(work / "mesh_dense.ply")
+        asset = build_scene_asset(mesh_tri.vertices, mesh_tri.triangles, device=device)
+        intr = DualAxisLidarIntrinsics.create_blk2go_dual_axis()
+        # 40 poses: the 2.56 M rays of a 20-waypoint planned run (the
+        # planner doubles the waypoints), as phase_main_path's BLK2GO run.
+        poses = room_poses(40, seed=3)
+        scans, launches = {}, {}
+        for backend in ("pairs", "culled"):
+            reset()
+            t0 = time.time()
+            got = shard.scan_waypoints_sharded(
+                asset, intr, poses, mesh, backend=backend, outputs="unordered",
+                generator=torch.Generator(device=device).manual_seed(0))
+            sync(device)
+            sharded_s = time.time() - t0
+            launches[f"scan_{backend}"] = dict(_kernels.LAUNCHES)
+            want = scan_waypoints(asset, intr, poses, backend=backend, outputs="unordered",
+                                  generator=torch.Generator(device=device).manual_seed(0))
+            same = all(torch.equal(getattr(got, k), getattr(want, k))
+                       for k in ("points", "t", "mask"))
+            scans[backend] = dict(rays=int(got.mask.numel()), hits=int(got.mask.sum()),
+                                  bit_equal=same, seconds=sharded_s)
+            log(f"[multi] scan_waypoints_sharded BLK2GO x 40 poses on {backend}: {scans[backend]}, "
+                f"launches {launches[f'scan_{backend}']} on {card}")
+            require(same, f"sharded scan ({backend}) differs from scan_waypoints")
+            key = "raycast_pairs" if backend == "pairs" else "raycast_culled"
+            require(launches[f"scan_{backend}"][key] == 1,
+                    f"sharded scan ({backend}) launches {launches[f'scan_{backend}']}")
+
+        # Triangle shards, S shard-local launches in this process.
+        o, d, _ = scan_rays(intr, poses, torch.Generator(device=device).manual_seed(0),
+                            device, backend="culled")
+        max_range = float(intr.max_range)
+        one = {}
+        for backend in ("culled", "pairs"):
+            one[backend] = shard.local_raycast(
+                o, d, asset.tri_data, asset.block_lo, asset.block_hi, asset.super_lo,
+                asset.super_hi, super_factor=asset.super_factor, t_max=max_range,
+                backend=backend)
+        tri_shards = {}
+        for n_shards in SHARDS:
+            asset_p = shard.shard_asset_blocks(asset, n_shards)
+            for backend in ("culled", "pairs"):
+                reset()
+                ts, slots = [], []
+                t0 = time.time()
+                for i in range(n_shards):
+                    t, s = shard.local_raycast(
+                        o, d, *shard.block_shard(asset_p, n_shards, i),
+                        super_factor=asset_p.super_factor, t_max=max_range, backend=backend)
+                    ts.append(t)
+                    slots.append(shard.globalize_slots(s, i, asset_p.num_blocks // n_shards,
+                                                       asset_p.block_size))
+                t, slot = shard.combine_nearest(torch.stack(ts), torch.stack(slots))
+                sync(device)
+                secs = time.time() - t0
+                shard_launches = dict(_kernels.LAUNCHES)
+                t1, s1 = one[backend]
+                if backend == "culled":
+                    res = dict(bit_equal=bool(torch.equal(t, t1) and torch.equal(slot, s1)))
+                    require(res["bit_equal"], f"S={n_shards} culled shards differ")
+                    require(shard_launches["raycast_culled"] == n_shards,
+                            f"S={n_shards} culled launches {shard_launches}")
+                else:
+                    pa = finalize_result(o, d, t, slot, asset_p).points
+                    pb = finalize_result(o, d, t1, s1, asset).points
+                    res = pairs_agreement(t, slot, pa, t1, s1, pb)
+                    require(res["hit_agree"] >= 0.99 and res["same_slot"] >= 0.99
+                            and res["p99_mm"] <= 5.0 and res["over_5cm_frac"] <= 1e-3,
+                            f"S={n_shards} pair shards off the contract: {res}")
+                    require(shard_launches["raycast_pairs"] == n_shards,
+                            f"S={n_shards} pair launches {shard_launches}")
+                res.update(rays=int(o.shape[0]), seconds=secs, launches=shard_launches)
+                tri_shards[f"{backend}_S{n_shards}"] = res
+                log(f"[multi] triangle shards S={n_shards}, {backend}, {o.shape[0]} rays: "
+                    f"{res} on {card}")
+
+        # Rooms in parallel on [cuda:0, cuda:0], against phase_batch's main.
+        jobs = [{"scene_path": p, "scene_name": n, "area": "Area_1",
+                 "room": n.split("_", 2)[2]}
+                for p, n, _ in find_available_scenes(str(work / "recon"))]
+        reset()
+        t0 = time.time()
+        ok, failed = run_scenes_device_parallel(
+            jobs, num_waypoints=20, output_base_dir=str(work / "roomdp_out"),
+            devices=[device, device], use_blk2go=True, s3dis_data_root=str(work / "s3dis"))
+        sync(device)
+        dp_s = time.time() - t0
+        launches["room_dp"] = dict(_kernels.LAUNCHES)
+        require(not failed and len(ok) == len(jobs) == 2, f"room DP: {ok} {failed}")
+        require(launches["room_dp"]["raycast_pairs"] == 2
+                and launches["room_dp"]["raycast_pairs_prepass"] == 2,
+                f"room DP launches {launches['room_dp']}")
+        for name, _ in ok:
+            for f in ("combined_pointcloud_with_label.ply", "combined_pointcloud.ply"):
+                require((work / "roomdp_out" / name / f).read_bytes()
+                        == (work / "batch_out" / name / f).read_bytes(),
+                        f"room DP {name}/{f} differs from the sequential main")
+        log(f"[multi] run_scenes_device_parallel of {len(ok)} rooms on [{device}, {device}] "
+            f"in {dp_s:.2f} s on {card}: labeled and combined clouds equal to the "
+            f"sequential main's byte for byte; launches {launches['room_dp']}")
+
+        # Query-sharded 1-NN: the sharded scan's hits against the TLS cloud.
+        from ipcgen_tpu_torch.semantic.annotations import S3DISAnnotationLoader
+
+        loader = S3DISAnnotationLoader(str(work / "s3dis"), verbose=False)
+        refs, _, _ = loader.create_labeled_pointcloud_with_instances(
+            loader.load_room_annotations("Area_1", "office_1"))
+        refs = np.asarray(refs, np.float32)
+        got = shard.scan_waypoints_sharded(
+            asset, intr, poses[:4], mesh, outputs="unordered",
+            generator=torch.Generator(device=device).manual_seed(1))
+        queries = got.points[got.mask].cpu().numpy()
+        t0 = time.time()
+        idx = shard.sharded_grid_nn(queries, refs, mesh)
+        nn_s = time.time() - t0
+        require(np.array_equal(idx, nearest_neighbor_indices_grid(queries, refs,
+                                                                  device=device)),
+                "sharded 1-NN differs from the one-card 1-NN")
+        log(f"[multi] sharded_grid_nn of {len(queries)} scan points into {len(refs)} TLS "
+            f"points in {nn_s:.2f} s on {card}: equal to the one-card 1-NN")
+
+        reset()
+        t0 = time.time()
+        dry = dryrun.dryrun()
+        sync(device)
+        launches["dryrun"] = dict(_kernels.LAUNCHES)
+        require(dry["rays"] >= 1_000_000, f"dry run: {dry}")
+        log(f"[multi] dry run at world size 1 over NCCL: {dry} in {time.time() - t0:.2f} s "
+            f"on {card}")
+    finally:
+        dist.destroy_process_group()
+    return dict(scans=scans, tri_shards=tri_shards, room_dp_s=dp_s, grid_nn_s=nn_s,
+                grid_nn_queries=int(len(queries)), dryrun=dry, launches=launches)
+
 
 def main() -> int:
     import torch
@@ -1679,6 +2091,15 @@ def main() -> int:
         recon = phase_recon(device, work, card, tls_tree)
         runs["recon_dense32"] = phase_recon_sim(device, work, card, tls_tree)
         bbox_eval = phase_bbox_eval(device, work, card)
+        pipeline = phase_pipeline(device, work, card)
+        for k in _kernels.LAUNCHES:
+            _kernels.LAUNCHES[k] = 0
+        gate = phase_release_gate(device, work, card)
+        gate["launches"] = dict(_kernels.LAUNCHES)
+        require(gate["launches"]["raycast_pairs"] == 2
+                and gate["launches"]["raycast_pairs_prepass"] == 2,
+                f"release gate: one prepass and one walk a pass expected: {gate['launches']}")
+        multi = phase_multidevice(device, work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[summary] batch {json.dumps({k: v for k, v in batch.items() if k != 'rooms'})}; "
@@ -1690,10 +2111,26 @@ def main() -> int:
         f"{rs['rays_per_s']:.0f} rays/s, stages {json.dumps(rs['stages'])}; bbox and eval "
         f"{json.dumps(bbox_eval)}")
 
-    # Every main-path run: the two pair runs of phase_main_path and the
-    # scan of the recon mesh.
-    launches = sum(r["launches"]["raycast_pairs"] for r in runs.values())
-    prepass_launches = sum(r["launches"]["raycast_pairs_prepass"] for r in runs.values())
+    log(f"[summary] pipeline {json.dumps({k: v for k, v in pipeline.items()})}; release gate "
+        f"{json.dumps(gate)}; on {card}")
+    log(f"[summary] multi-device {json.dumps({k: v for k, v in multi.items() if k != 'launches'})}")
+
+    # Every path's own launches, each counted from 0 just before it: the
+    # two pair runs of phase_main_path, the culled runs, the batch, the scan
+    # of the recon mesh, the pipeline, the release gate and the multi-device
+    # paths.
+    by_path = {f"sim_{k}": r["launches"] for k, r in runs.items()}
+    by_path.update(culled_blk2go=culled["launches"],
+                   culled_dense32=culled["dense32"]["launches"], batch=batch["launches"],
+                   pipeline=pipeline["launches"], release_gate=gate["launches"],
+                   **{f"multi_{k}": v for k, v in multi["launches"].items()},
+                   **{f"multi_tri_{k}": v["launches"] for k, v in multi["tri_shards"].items()})
+
+    def path_launches(key):
+        return {k: v[key] for k, v in by_path.items() if v[key]}
+
+    launches = sum(path_launches("raycast_pairs").values())
+    prepass_launches = sum(path_launches("raycast_pairs_prepass").values())
     at_shape = runs["blk2go"]["kernel"]  # the default profile
     prepass = runs["blk2go"]["prepass"]
     yardstick = {"library_ms": None}  # no PyTorch call computes a nearest hit
@@ -1705,6 +2142,7 @@ def main() -> int:
         "replaces": "ipcgen_tpu/ops/raycast_mxu.py:619",
         "also_replaces": "ipcgen_tpu/ops/raycast_mxu.py:470",
         "launches": launches,
+        "launches_by_path": path_launches("raycast_pairs"),
         "max_abs_err": max(*(r["kernel"]["max_abs_err"] for r in runs.values()),
                            *(c["max_abs_err"] for c in checks.values())),
         "ms": at_shape["ms"],
@@ -1724,6 +2162,7 @@ def main() -> int:
         "replaces": "ipcgen_tpu/ops/raycast_mxu.py:297",
         "replaces_note": "not a Pallas kernel (XLA candidate_blocks)",
         "launches": prepass_launches,
+        "launches_by_path": path_launches("raycast_pairs_prepass"),
         "max_abs_err": 0.0,
         "ms": prepass["ms"],
         "plain_ms": prepass["plain_ms"],
@@ -1752,7 +2191,8 @@ def main() -> int:
         "route": "cuda",
         "source": "ipcgen_tpu_torch/csrc/raycast_culled.cu",
         "replaces": "ipcgen_tpu/ops/raycast_pallas.py:41",
-        "launches": culled["launches"]["raycast_culled"],
+        "launches": sum(path_launches("raycast_culled").values()),
+        "launches_by_path": path_launches("raycast_culled"),
         "max_abs_err": max(culled["kernel"]["max_abs_err"],
                            *(c["max_abs_err"] for c in culled_checks.values())),
         # The main path's own call: all the culled run's rays.

@@ -1,5 +1,5 @@
-"""ipcgen_tpu_torch — the sim stage of ipcgen_tpu in PyTorch, with hand-written
-CUDA kernels for one NVIDIA H100 (``sm_90a``).
+"""ipcgen_tpu_torch — ipcgen_tpu in PyTorch, with hand-written CUDA kernels for
+one NVIDIA H100 (``sm_90a``).
 
 The JAX package ``ipcgen_tpu`` beside it is the reference; this package keeps
 its layout so each module's counterpart is easy to find:
@@ -17,6 +17,11 @@ its layout so each module's counterpart is easy to find:
                  the host layer: copies of the JAX package's modules of the
                  same names, with the simulated-scene container's label path
                  on the port's 1-NN;
+- ``preprocess``, ``recon``, ``bbox``, ``eval``  the other four stages;
+- ``viz``        the figures (matplotlib imported at the first draw);
+- ``parallel``   the sharded paths over ``torch.distributed`` and a dry run;
+- ``run_pipeline``, ``bench_pipeline``, ``release_gate_lroom``  the five-stage
+                 driver, its bench and its release gate;
 - ``kernel_probe`` the pair kernel's probe variants (``csrc/raycast_probe.cu``).
 
 This package imports nothing of ``ipcgen_tpu`` and never imports jax; yaml

@@ -78,6 +78,12 @@ class SceneAsset:
     def num_supers(self) -> int:
         return self.super_lo.shape[0]
 
+    def to(self, device) -> "SceneAsset":
+        """The same asset with its tensors on ``device``."""
+        moved = {k: getattr(self, k).to(device) for k in _ARRAY_FIELDS}
+        return SceneAsset(**moved, n_tris=self.n_tris, block_size=self.block_size,
+                          super_factor=self.super_factor)
+
 
 def _bucket_count(n: int, granularity: int = 4) -> int:
     """Round up to the next (granularity..2*granularity-1) * 2^j bucket

@@ -62,6 +62,20 @@ class RaycastEngineBase:
         _, hit, points = self._raycast(origins, dirs, self.asset_for_mesh(mesh))
         return points[hit]
 
+    def lidar_intersect_mesh(self, lidar, mesh) -> Tuple[np.ndarray, np.ndarray]:
+        """A LiDAR's rays against a mesh, hits beyond its ``max_range``
+        dropped; returns (points (M, 3), incident angles (M,) in degrees
+        from the vertical) (reference: raycast_engine_cpu.py:75-111)."""
+        points = self.rays_intersect_mesh(rays=lidar.get_rays(), mesh=mesh)
+        lidar_center = np.asarray(lidar.pose[:3, 3])
+        point_dists = np.linalg.norm(points - lidar_center, axis=1)
+        points = points[point_dists < lidar.intrinsics.max_range]
+        if len(points) == 0:
+            return points, np.empty(0)
+        directions = points - lidar_center
+        directions = directions / np.linalg.norm(directions, axis=1, keepdims=True)
+        return points, np.degrees(np.arccos(np.abs(directions[:, 2])))
+
 
 class RaycastEngineCPU(RaycastEngineBase):
     """The block-scan oracle on the CPU."""

@@ -165,12 +165,15 @@ def _scan_core(
     max_range: float,
     outputs: str = "full",
     backend: str = "pairs",
+    cast=None,
 ) -> ScanBatch:
     """Everything after beam generation: pose transform, raycast in the
     order ``perm`` gives, range noise, keep and range masks, outputs.
 
     dirs_sensor (WB, R, 3) and keep (WB, R) are in BEAM order (WB = 1 or W);
     range_noise (W, R) holds the sigma-scaled draws in beam order, or None.
+    ``cast(origins, dirs)``, when given, takes the place of ``raycast_asset``
+    (the sharded scan's raycast, ``parallel/shard.py``).
     """
     if outputs not in ("full", "minimal", "unordered"):
         raise ValueError(f"unknown outputs mode {outputs!r}")
@@ -180,10 +183,13 @@ def _scan_core(
     origins, dirs_wp = _world_rays(poses, dirs_sensor, perm)
     # The scan's order already makes the tiles coherent: no ray sort, as in
     # the JAX scan (whose "auto" sort is off under jit).
-    res = raycast_asset(
-        origins.reshape(w * r, 3), dirs_wp.reshape(w * r, 3), asset,
-        backend=backend, t_max=max_range, sort_rays=False,
-    )
+    if cast is None:
+        res = raycast_asset(
+            origins.reshape(w * r, 3), dirs_wp.reshape(w * r, 3), asset,
+            backend=backend, t_max=max_range, sort_rays=False,
+        )
+    else:
+        res = cast(origins.reshape(w * r, 3), dirs_wp.reshape(w * r, 3))
     t = res.t.view(w, r)
     hit = res.hit.view(w, r)
     points = res.points.view(w, r, 3)
@@ -273,6 +279,13 @@ def scan_waypoints(
     backend's ray order within each waypoint).  ``backend`` is the raycast
     backend of ``ops.raycast.raycast_asset``.
     """
+    return _scan(asset, intrinsics, poses, generator, apply_range_noise, outputs,
+                 backend)
+
+
+def _scan(asset, intrinsics, poses, generator, apply_range_noise: bool,
+          outputs: str, backend: str, cast=None) -> ScanBatch:
+    """``scan_waypoints``, with ``_scan_core``'s ``cast``."""
     device = asset.device
     poses, generator, dirs_sensor, keep = _draw_scan(intrinsics, poses,
                                                      generator, device)
@@ -287,5 +300,5 @@ def scan_waypoints(
     return _scan_core(
         asset, poses, dirs_sensor, keep, range_noise,
         torch.tensor(perm, device=device), torch.tensor(inv_perm, device=device),
-        float(intrinsics.max_range), outputs, backend,
+        float(intrinsics.max_range), outputs, backend, cast,
     )

@@ -26,11 +26,17 @@ The trajectory planner's ``occupancy_mode`` comes from the config's
 ``trajectory`` section: "vertices" (the default) or "raycast", which probes
 the planning grid through the resident scene asset (``ops/occupancy.py``).
 
-Not ported yet (see ROADMAP.md): visualisations (``save_visualizations``
-defaults to False and raises when True), the multi-device room parallelism
-of ``run_scenes_device_parallel`` (``main(room_dp=True)`` raises with more
-than one card and runs the sequential path with one), and the shard-level
-raycast paths.
+``save_results(save_visualizations=True)``, the default wherever the JAX
+package's is True, draws the trajectory, scan and scene figures
+(``ipcgen_tpu_torch.viz``); matplotlib is imported at the first draw, so a
+host without it (the GPU host) raises ``ImportError`` there.
+
+Rooms in parallel: ``run_scenes_device_parallel`` puts rooms round-robin on
+a list of devices, dispatching a wave's scans before collecting any, and
+``main(room_dp=True)`` runs it over every card when there is more than one.
+Within one room, ``raycast_engine.multichip`` with an initialised
+``torch.distributed`` group of more than one rank shards the scan's rays over
+the ranks (``parallel/shard.py``).
 """
 
 from __future__ import annotations
@@ -67,6 +73,13 @@ from ipcgen_tpu_torch.trajectory import (
 )
 from ipcgen_tpu_torch.trajectory.waypoint import waypoints_to_pose_batch
 from ipcgen_tpu_torch.utils.device import as_device, sync
+from ipcgen_tpu_torch.viz import (
+    MeshVisualizer,
+    S3DISVisualizer,
+    ScanResultVisualizer,
+    TrajectoryVisualizer,
+    create_visualization_summary,
+)
 
 # The JAX package's raycast backend names -> the port's backends.
 RAYCAST_BACKENDS = {
@@ -129,6 +142,10 @@ class S3DISSimulator:
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(config.get("seed", 0) or 0))
         self._label_prefetch: Optional[LabelPrefetch] = None
+        # The visualisers import matplotlib only when they draw.
+        self.trajectory_visualizer = TrajectoryVisualizer()
+        self.scan_visualizer = ScanResultVisualizer()
+        self.mesh_visualizer = MeshVisualizer()
         self._initialize_components()
 
     def _initialize_components(self) -> None:
@@ -208,14 +225,45 @@ class S3DISSimulator:
         return waypoints, quality.to_dict()
 
     # ------------------------------------------------------------------
-    def dispatch_scan(self, waypoints: List[Waypoint]):
-        """Queue the fused multi-waypoint scan on the device."""
+    def dispatch_scan(self, waypoints: List[Waypoint], device=None):
+        """Queue the fused multi-waypoint scan.
+
+        With ``device`` the scene asset and the poses are committed to that
+        device first, so that scans of several rooms dispatched on several
+        cards run side by side (``run_scenes_device_parallel``).  A
+        generator that lives elsewhere is replaced by one on ``device``
+        seeded as it was, so its draws start again from the seed.  Without
+        ``device``, ``raycast_engine.multichip`` and an initialised
+        ``torch.distributed`` group of more than one rank shard the scan's
+        rays over the ranks (``parallel.shard.scan_waypoints_sharded``).
+        """
         if self.scene is None or self.scene_asset is None:
             raise ValueError("Scene not loaded. Call load_scene() first.")
+        poses = waypoints_to_pose_batch(waypoints)
+        noise = bool(self.config.get("apply_range_noise", False))
+        multichip = (self.config.get("raycast_engine") or {}).get("multichip", False)
+        if device is None and multichip and _world_size() > 1:
+            from ipcgen_tpu_torch.parallel.shard import (
+                make_device_mesh,
+                scan_waypoints_sharded,
+            )
+
+            return scan_waypoints_sharded(
+                self.scene_asset, self.lidar_config, poses, make_device_mesh(),
+                generator=self.generator, backend=self.backend,
+                apply_range_noise=noise, outputs="unordered",
+            )
+        if device is not None:
+            device = as_device(device)
+            if self.scene_asset.device != device:
+                self.scene_asset = self.scene_asset.to(device)
+            if self.generator.device != device:
+                self.generator = torch.Generator(device=device).manual_seed(
+                    self.generator.initial_seed())
+            self.device = device
         return scan_waypoints(
-            self.scene_asset, self.lidar_config,
-            waypoints_to_pose_batch(waypoints), generator=self.generator,
-            apply_range_noise=bool(self.config.get("apply_range_noise", False)),
+            self.scene_asset, self.lidar_config, poses, generator=self.generator,
+            apply_range_noise=noise,
             # collect_scan only mask-selects per waypoint, so the in-waypoint
             # ray order does not matter.
             outputs="unordered",
@@ -297,12 +345,38 @@ class S3DISSimulator:
     # ------------------------------------------------------------------
     def save_results(self, sim_scene: S3DISSimScene, output_dir: Path,
                      waypoints: Optional[List[Waypoint]] = None,
-                     save_visualizations: bool = False) -> None:
-        """Write the statistics, summaries and both combined clouds."""
-        if save_visualizations:
-            raise NotImplementedError("visualisations are not ported yet")
+                     save_visualizations: bool = True) -> None:
+        """Write the statistics, summaries and both combined clouds, and with
+        ``save_visualizations`` the figures of ``output_dir/visualizations``
+        (reference: :298-364).
+
+        Where the JAX package swallows any error of the scene-level figures
+        and their summary, this raises it, as every draw here does: without
+        matplotlib that is ``ImportError``.
+        """
         output_dir = Path(output_dir)
         sim_scene.save_results(output_dir)
+        if not save_visualizations:
+            return
+        vis_dir = output_dir / "visualizations"
+        vis_dir.mkdir(parents=True, exist_ok=True)
+        self.trajectory_visualizer.output_dir = vis_dir
+        self.scan_visualizer.output_dir = vis_dir
+        self.mesh_visualizer.output_dir = vis_dir
+        s3dis_visualizer = S3DISVisualizer(output_dir)
+        if waypoints and self.scene:
+            bounds = self.scene.room_bounds.to_dict()
+            self.trajectory_visualizer.visualize_trajectory_2d(
+                waypoints, bounds, title=f"Robot trajectory - {self.scene.scene_name}")
+            self.trajectory_visualizer.visualize_trajectory_3d(
+                waypoints, bounds, title=f"Robot trajectory 3D - {self.scene.scene_name}")
+        self.scan_visualizer.visualize_scan_statistics(sim_scene)
+        self.scan_visualizer.visualize_scan_quality_evolution(sim_scene)
+        self.scan_visualizer.create_scan_summary_report(sim_scene)
+        if self.scene:
+            viz_results = s3dis_visualizer.generate_all_visualizations(
+                sim_scene, self.scene, num_sample_frames=5)
+            create_visualization_summary(viz_results, output_dir)
 
     def run_complete_simulation(
         self,
@@ -327,7 +401,7 @@ class S3DISSimulator:
     def run_auto_simulation(self, scene_path: str, num_waypoints: int = 20,
                             output_dir: Optional[Path] = None,
                             scene_name: Optional[str] = None,
-                            save_visualizations: bool = False,
+                            save_visualizations: bool = True,
                             save_executor: Optional[Any] = None) -> S3DISSimScene:
         """Load -> auto trajectory -> scan -> save.
 
@@ -417,7 +491,7 @@ def run_single_scene_simulation(
     area: Optional[str] = None,
     room: Optional[str] = None,
     seed: int = 0,
-    save_visualizations: bool = False,
+    save_visualizations: bool = True,
     save_executor: Optional[Any] = None,
     lidar_horizontal_res: Optional[int] = None,
     *,
@@ -429,8 +503,8 @@ def run_single_scene_simulation(
     ``use_gpu`` the scene runs on ``device`` (None: the card, "cuda");
     ``use_gpu=False`` asks for the CPU, and a ``device`` other than the CPU
     then raises (``resolve_device``; nothing falls back).
-    ``save_visualizations`` defaults to False, not True as in the JAX
-    package, because visualisations are not ported.  ``save_executor``
+    ``save_visualizations`` draws the figures (``save_results``; off under
+    ``save_executor``, as in the JAX package).  ``save_executor``
     takes the export of an auto-trajectory scene off the caller's thread
     (``S3DISSimulator.run_auto_simulation``).
     """
@@ -472,6 +546,90 @@ def run_single_scene_simulation(
                                save_visualizations=save_visualizations)
     print(f"[Simulation] Scene {scene_name} completed.")
     return sim_scene
+
+
+def _world_size() -> int:
+    """Ranks of the default ``torch.distributed`` group (1 without one)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def run_scenes_device_parallel(
+    scene_jobs: List[Dict[str, Any]],
+    num_waypoints: int = 20,
+    output_base_dir: str = "simulation_results",
+    devices: Optional[List[Any]] = None,
+    robot_height: float = 1.0,
+    use_dense_lidar: bool = False,
+    use_blk2go: bool = True,
+    s3dis_data_root: str = "S3DIS/raw/S3DIS/data/Stanford3dDataset_v1.2_Aligned_Version",
+    seed: int = 0,
+    save_visualizations: bool = False,
+    lidar_horizontal_res: Optional[int] = None,
+) -> Tuple[List[Tuple[str, S3DISSimScene]], List[Tuple[str, str]]]:
+    """Rooms in parallel, one room per device (reference: :614-700).
+
+    Rooms go round-robin over ``devices`` (None: every card) in waves of
+    ``len(devices)``.  Within a wave each room is loaded and planned on the
+    host, its simulator built on its device, and its scan dispatched there;
+    every scan of the wave is dispatched before the first is collected,
+    exported and written.  Each room keeps its own simulator and seed, so
+    its outputs equal those of the sequential driver on the same device.
+
+    ``scene_jobs`` entries: ``{"scene_path", "scene_name", "area", "room"}``.
+    Returns ``(successful [(name, sim_scene)], failed [(name, error)])``.
+    """
+    if devices is None:
+        n_cards = torch.cuda.device_count()
+        if n_cards == 0:
+            raise RuntimeError("run_scenes_device_parallel: no card; pass devices")
+        devices = [torch.device("cuda", i) for i in range(n_cards)]
+    successful: List[Tuple[str, S3DISSimScene]] = []
+    failed: List[Tuple[str, str]] = []
+    n_dev = max(len(devices), 1)
+    for wave_start in range(0, len(scene_jobs), n_dev):
+        wave = scene_jobs[wave_start:wave_start + n_dev]
+        inflight = []
+        for j, job in enumerate(wave):
+            name = job["scene_name"]
+            device = as_device(devices[j % n_dev])
+            try:
+                config = {
+                    "raycast_engine": {"use_gpu": True},
+                    "trajectory": {"robot_height": robot_height},
+                    "s3dis_data_root": s3dis_data_root,
+                    "area": job.get("area"),
+                    "room": job.get("room"),
+                    "seed": seed,
+                    "lidar": {"horizontal_res": lidar_horizontal_res},
+                }
+                simulator = S3DISSimulator(config, use_dense_lidar=use_dense_lidar,
+                                           use_blk2go=use_blk2go, device=device)
+                t0 = time.time()
+                simulator.load_scene(job["scene_path"], name)
+                waypoints, analysis_info = simulator.generate_auto_trajectory(num_waypoints)
+                batch = simulator.dispatch_scan(waypoints, device=device)
+                inflight.append((name, simulator, waypoints, analysis_info, batch, t0))
+                print(f"[RoomDP] {name} dispatched on {device}")
+            except Exception as e:
+                failed.append((name, str(e)))
+                print(f"[RoomDP] {name} failed at dispatch: {e}")
+        for name, simulator, waypoints, analysis_info, batch, t0 in inflight:
+            try:
+                sim_scene = simulator.collect_scan(batch, waypoints, t0)
+                output_dir = Path(output_base_dir) / name
+                simulator.save_results(sim_scene, output_dir, waypoints,
+                                       save_visualizations=save_visualizations)
+                with open(output_dir / "trajectory_analysis.json", "w",
+                          encoding="utf-8") as f:
+                    json.dump(analysis_info, f, indent=2, ensure_ascii=False)
+                successful.append((name, sim_scene))
+                print(f"[RoomDP] {name} completed.")
+            except Exception as e:
+                failed.append((name, str(e)))
+                print(f"[RoomDP] {name} failed at collect/export: {e}")
+    return successful, failed
 
 
 def find_available_scenes(
@@ -534,7 +692,7 @@ def main(
     use_auto_trajectory: bool = True,
     s3dis_data_root: str = "S3DIS/raw/S3DIS/data/Stanford3dDataset_v1.2_Aligned_Version",
     async_export: bool = False,
-    save_visualizations: bool = False,
+    save_visualizations: bool = True,
     room_dp: bool = False,
     lidar_horizontal_res: Optional[int] = None,
     *,
@@ -548,10 +706,12 @@ def main(
     labeled PLY and its statistics txt exist, and a partly written one runs
     again.  ``async_export=True`` overlaps each scene's export with the next
     scene's device work on one background thread (depth-1 double buffering);
-    a scene whose export raises counts as failed.  ``room_dp=True`` runs the
-    sequential path on one card and raises ``NotImplementedError`` with
-    more, where the JAX package spreads rooms over its devices
-    (``run_scenes_device_parallel``, not ported).
+    a scene whose export raises counts as failed.  ``room_dp=True`` with
+    more than one card puts the rooms round-robin on every card
+    (``run_scenes_device_parallel``, with the same skip rules); it raises
+    ``ValueError`` when ``device`` or ``use_gpu`` asks for the CPU.  With one
+    card or none it runs the sequential path, as the JAX package does with
+    one device.
 
     Returns {"successful": [(name, sim_scene)], "failed": [(name, error)],
     "skipped": [name], "total_time": seconds}.
@@ -562,9 +722,37 @@ def main(
         print("[Batch] No scenes found. Verify the reconstruction directory.")
         return {"successful": [], "failed": [], "skipped": []}
     if room_dp and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "room_dp with more than one card (run_scenes_device_parallel) is not "
-            "ported yet: ROADMAP.md, Queue 1 item 7")
+        if not use_gpu or (device is not None and torch.device(device).type != "cuda"):
+            raise ValueError(
+                f"room_dp spreads the rooms over every card, but use_gpu={use_gpu} "
+                f"and device={device!r} ask for the CPU")
+        start_time = time.time()
+        jobs, skipped_scenes = [], []
+        for scene_path, scene_name, area_room in available_scenes:
+            scene_output_dir = Path(output_base_dir) / scene_name
+            ply_file = scene_output_dir / "combined_pointcloud_with_label.ply"
+            stats_file = scene_output_dir / "simulation_statistics.txt"
+            if ply_file.exists() and stats_file.exists():
+                print(f"[Batch] Scene {scene_name} already processed. Skipping.")
+                skipped_scenes.append(scene_name)
+                continue
+            elif ply_file.exists() or stats_file.exists():
+                print(f"[Batch] Scene {scene_name} partially processed. Re-running.")
+            area, room = _parse_area_room(area_room)
+            jobs.append({"scene_path": scene_path, "scene_name": scene_name,
+                         "area": area, "room": room})
+        successful_scenes, failed_scenes = run_scenes_device_parallel(
+            jobs, num_waypoints=num_waypoints, output_base_dir=output_base_dir,
+            robot_height=robot_height, use_dense_lidar=use_dense_lidar,
+            use_blk2go=use_blk2go, s3dis_data_root=s3dis_data_root,
+            save_visualizations=save_visualizations,
+            lidar_horizontal_res=lidar_horizontal_res,
+        )
+        total_time = time.time() - start_time
+        _print_batch_summary(len(available_scenes), successful_scenes, skipped_scenes,
+                             failed_scenes, total_time)
+        return {"successful": successful_scenes, "failed": failed_scenes,
+                "skipped": skipped_scenes, "total_time": total_time}
 
     executor = None
     pending: Optional[Tuple[str, Any]] = None

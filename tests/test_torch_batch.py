@@ -193,9 +193,12 @@ def test_export_failure_fails_its_scene(tmp_path, monkeypatch):
 
 
 def test_room_dp_with_more_than_one_card_raises(tmp_path, monkeypatch):
+    """With more than one card ``room_dp`` spreads the rooms over the cards
+    (tests/test_torch_shard.py), so a caller that asks for the CPU gets an
+    error, not the cards."""
     recon = make_recon(tmp_path)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="room_dp"):
+    with pytest.raises(ValueError, match="room_dp"):
         psim.main(reconstruction_dir=str(recon), room_dp=True, device="cpu", **SCAN)
     assert psim.main(reconstruction_dir=str(tmp_path / "missing"), device="cpu") == \
         {"successful": [], "failed": [], "skipped": []}
@@ -215,9 +218,8 @@ def test_main_single_matches_jax(tmp_path):
 
 
 def test_run_complete_simulation_matches_jax(tmp_path):
-    """A manual straight trajectory: the port's run against the JAX
-    simulator's same steps (its own run_complete_simulation also draws
-    visualisations, which the port does not)."""
+    """A manual straight trajectory: the port's run, which also draws the
+    figures, against the JAX simulator's same steps."""
     recon = make_recon(tmp_path, ROOMS[:1])
     mesh = str(recon / ROOMS[0] / "mesh_dense.ply")
     cfg = {"raycast_engine": {"use_gpu": False}, "lidar": {"horizontal_res": 256}, "seed": 0}
@@ -238,6 +240,7 @@ def test_run_complete_simulation_matches_jax(tmp_path):
     assert [len(f.points) for f in got.frames] == pytest.approx(
         [len(f.points) for f in want.frames], rel=0.005)
     assert (tmp_path / "port" / "combined_pointcloud_with_label.ply").is_file()
+    assert (tmp_path / "port" / "visualizations" / "trajectory_2d.png").is_file()
     assert got.scene_name == "complete"
 
 

@@ -5,7 +5,10 @@ the port's public entry point, then again through the config tree
 (``PipelineConfig.from_dict`` with ``simulation.backend: pallas``, the culled
 path), as ``chip_smoke.py`` does on the card; then the batch entry point ``main``
 with the asynchronous export, ``preprocess_room``, ``reconstruct_room`` on its
-pickle, ``find_best_match`` and the LiDAR-Net boxes on the scans.  A source scan
+pickle, ``find_best_match`` and the LiDAR-Net boxes on the scans; the pipeline
+driver's ``run`` over the golden room, the sharded raycast and scan at world
+size 1 over gloo, and ``import ipcgen_tpu_torch.viz``.  Figures are off
+throughout (a draw needs matplotlib).  A source scan
 keeps every ``import`` of jax or of ``ipcgen_tpu`` out of the package and
 ``chip_smoke.py``, and every import of matplotlib or yaml inside a function."""
 
@@ -43,7 +46,7 @@ SCRIPT = textwrap.dedent("""
         str(mesh), scene_name="office_1", num_waypoints=4,
         output_base_dir=str(out), use_blk2go=False, use_dense_lidar=False,
         lidar_horizontal_res=200, s3dis_data_root=sys.argv[2], area="Area_1",
-        room="office_1", device="cpu")
+        room="office_1", save_visualizations=False, device="cpu")
     assert len(scene.frames) > 0 and all(len(f.points) for f in scene.frames)
     _, _, sem, _ = read_labeled_ply(out / "office_1" / "combined_pointcloud_with_label.ply")
     assert len(np.unique(sem)) > 3, np.unique(sem)
@@ -59,7 +62,8 @@ SCRIPT = textwrap.dedent("""
     sim = S3DISSimulator(config, use_blk2go=False, device="cpu")
     assert sim.backend == "culled"
     culled = sim.run_auto_simulation(str(mesh), num_waypoints=4,
-                                     output_dir=out / "culled", scene_name="office_1")
+                                     output_dir=out / "culled", scene_name="office_1",
+                                     save_visualizations=False)
     counts = [len(f.points) for f in culled.frames]
     want = [len(f.points) for f in scene.frames]
     assert len(counts) == len(want) and all(
@@ -74,7 +78,7 @@ SCRIPT = textwrap.dedent("""
     (scene_dir / "mesh_dense.ply").write_bytes(mesh.read_bytes())
     res = main(str(out / "recon"), num_waypoints=4, output_base_dir=str(out / "batch"),
                use_blk2go=False, s3dis_data_root=sys.argv[2], async_export=True,
-               lidar_horizontal_res=200, device="cpu")
+               lidar_horizontal_res=200, save_visualizations=False, device="cpu")
     assert [n for n, _ in res["successful"]] == ["Area_1_office_1"] and not res["failed"]
 
     # The preprocess stage on the golden room.
@@ -109,6 +113,49 @@ SCRIPT = textwrap.dedent("""
     assert match["lidar_net_scene"] == "culled_scan" and 0 < match["cd"] < 0.5, match
     LiDARNetBBoxVisualizer(results_root=str(out / "boxes"), device="cpu") \
         .process_room_instances(scan)
+
+    # The pipeline driver's run (no yaml) over the golden room, figures off.
+    from ipcgen_tpu_torch.run_pipeline import run
+
+    cfg = PipelineConfig.from_dict({
+        "data": {"data_root": sys.argv[2], "area_name": "Area_1", "room_name": "office_1",
+                 "output_root": str(out / "pipeline")},
+        "nksr": {"voxel_size": 0.1, "chunked": False},
+        "simulation": {"num_waypoints": 3, "use_blk2go": False, "use_gpu": False,
+                       "use_auto_trajectory": False, "save_visualizations": False,
+                       "lidar_horizontal_res": 100,
+                       "output_base_dir": str(out / "pipeline_sim")}})
+    report = run(cfg, ["preprocess", "recon", "sim", "bbox"], device="cpu")
+    entry = report["rooms"]["Area_1_office_1"]
+    assert "error" not in entry and entry["sim"] == "done", entry
+
+    # The sharded paths at world size 1 over gloo, and the visualisers' import.
+    import os
+    import torch
+    import torch.distributed as dist
+
+    from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
+    from ipcgen_tpu_torch.parallel.shard import (
+        make_device_mesh, scan_waypoints_sharded, sharded_raycast_tris)
+    from ipcgen_tpu_torch.models import Indoor8LineLidarIntrinsics
+    from ipcgen_tpu_torch.trajectory import Waypoint
+    from ipcgen_tpu_torch.trajectory.waypoint import waypoints_to_pose_batch
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(out / "store"), 1),
+                            world_size=1, rank=0)
+    box = TriMesh.box(center=(2.0, 1.5, 1.2), size=(4.0, 3.0, 2.4), inward=True)
+    asset = build_scene_asset(box.vertices, box.triangles, device="cpu")
+    intr = Indoor8LineLidarIntrinsics(vertical_res=4, horizontal_res=64,
+                                      vertical_degrees=[10, 0, -10, -20], max_range=20.0)
+    poses = waypoints_to_pose_batch([Waypoint(2.0, 1.5, 1.0, 0.0)])
+    batch = scan_waypoints_sharded(asset, intr, poses, make_device_mesh(), backend="xla")
+    assert bool(batch.mask.all())
+    o = torch.tensor([[1.7, 1.2, 1.0]]).expand(8, 3)  # off the faces' diagonals
+    d = torch.eye(3).repeat(3, 1)[:8]
+    res = sharded_raycast_tris(o, d, asset, make_device_mesh(axis_names=("tris",)))
+    assert bool(res.hit.all())
+    dist.destroy_process_group()
+    import ipcgen_tpu_torch.viz  # noqa: F401
     assert all(sys.modules[n] is None for n in BLOCKED)
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED + ("jaxlib",)
               and sys.modules[m] is not None]

@@ -263,3 +263,34 @@ def test_engines_hit_the_box_room_walls():
     assert on_wall.all()
     with pytest.raises(ValueError):
         RaycastEngineCPU().rays_intersect_mesh(rays[:, :3], room)
+
+
+@pytest.mark.parametrize("max_range", [20.0, 2.0])
+def test_lidar_intersect_mesh_matches_the_jax_engine(max_range):
+    """``lidar_intersect_mesh`` (a LiDAR's rays, the range cut, incident
+    angles from the vertical) of the port's oracle engine against the JAX
+    CPU engine on the box room: the same points within 1e-4 m (float32
+    Moller-Trumbore in both, summed in another order) and the same angles
+    within 1e-3 degrees; a 2 m range drops most hits on both sides."""
+    from ipcgen_tpu.containers import TriMesh as JaxMesh
+    from ipcgen_tpu.models import Indoor8LineLidarIntrinsics as JaxIntrinsics
+    from ipcgen_tpu.models import create_lidar as jax_lidar
+    from ipcgen_tpu.sim.engine import RaycastEngineCPU as JaxEngine
+    from ipcgen_tpu_torch.containers import TriMesh
+    from ipcgen_tpu_torch.models import Indoor8LineLidarIntrinsics, create_lidar
+    from ipcgen_tpu_torch.sim.engine import RaycastEngineCPU, RaycastEngineGPU
+    from ipcgen_tpu_torch.trajectory import Waypoint
+
+    kw = dict(vertical_res=4, horizontal_res=64, vertical_degrees=[10, 0, -10, -20],
+              max_range=max_range)
+    pose = Waypoint(2.0, 1.5, 1.0, 0.3).to_pose_matrix()
+    box = dict(center=(2.0, 1.5, 1.25), size=(4.0, 3.0, 2.5), inward=True)
+    want_pts, want_ang = JaxEngine().lidar_intersect_mesh(
+        jax_lidar(JaxIntrinsics(**kw), pose), JaxMesh.box(**box))
+    lidar = create_lidar(Indoor8LineLidarIntrinsics(**kw), pose, device="cpu")
+    for engine in (RaycastEngineCPU(), RaycastEngineGPU(device="cpu")):
+        pts, ang = engine.lidar_intersect_mesh(lidar, TriMesh.box(**box))
+        assert len(pts) == len(want_pts) == len(ang) > 0
+        np.testing.assert_allclose(pts, want_pts, atol=1e-4)
+        np.testing.assert_allclose(ang, want_ang, atol=1e-3)
+    assert (len(want_pts) < 256) == (max_range < 3)

@@ -1,10 +1,6 @@
 """The port's entry points take the JAX package's parameters in the JAX
-package's order, and ``use_gpu`` picks the device without a fallback.
-
-The one documented difference: ``save_visualizations`` defaults to False in
-the port (visualisations are not ported; the port raises where it would
-draw) and True in the JAX package.  ``device`` is the port's own, and
-keyword-only.
+package's order, with the JAX package's defaults, and ``use_gpu`` picks the
+device without a fallback.  ``device`` is the port's own, and keyword-only.
 """
 
 import enum
@@ -37,8 +33,9 @@ def test_signature_matches_the_jax_package():
     assert port_params[-1].kind is inspect.Parameter.KEYWORD_ONLY
     assert all(p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD for p in port_params[:-1])
     differ = [p.name for p, q in zip(port_params, jax_params) if p.default != q.default]
-    assert differ == ["save_visualizations"]
-    assert jax_params[14].default is True and port_params[14].default is False
+    assert differ == []
+    assert jax_params[14].name == "save_visualizations"
+    assert jax_params[14].default is True and port_params[14].default is True
 
 
 def test_use_gpu_false_with_a_cuda_device_raises():
@@ -66,15 +63,20 @@ def test_save_executor_raises_not_implemented(tmp_path):
 
 
 # (port function, JAX function, the port's extra keyword-only parameters, the
-# parameters whose defaults differ: save_visualizations, False in the port).
+# parameters whose defaults differ: none).
 ENTRY_POINTS = {
-    "main": (port_sim.main, jax_sim.main, ["device"], ["save_visualizations"]),
+    "main": (port_sim.main, jax_sim.main, ["device"], []),
     "main_single": (port_sim.main_single, jax_sim.main_single, [], []),
     "run_complete_simulation": (port_sim.S3DISSimulator.run_complete_simulation,
                                 jax_sim.S3DISSimulator.run_complete_simulation, [], []),
     "run_auto_simulation": (port_sim.S3DISSimulator.run_auto_simulation,
-                            jax_sim.S3DISSimulator.run_auto_simulation, [],
-                            ["save_visualizations"]),
+                            jax_sim.S3DISSimulator.run_auto_simulation, [], []),
+    "save_results": (port_sim.S3DISSimulator.save_results,
+                     jax_sim.S3DISSimulator.save_results, [], []),
+    "dispatch_scan": (port_sim.S3DISSimulator.dispatch_scan,
+                      jax_sim.S3DISSimulator.dispatch_scan, [], []),
+    "run_scenes_device_parallel": (port_sim.run_scenes_device_parallel,
+                                   jax_sim.run_scenes_device_parallel, [], []),
     "preprocess_room": (port_loader.preprocess_room, jax_loader.preprocess_room,
                         ["device"], []),
     "knn_grid": (port_grid.knn_grid, jax_grid.knn_grid, ["device"], []),
@@ -95,7 +97,6 @@ def test_entry_point_signatures_match_the_jax_package(name):
     differ = [p.name for p, q in zip(port_params, jax_params)
               if value(p.default) != value(q.default)]
     assert differ == differ_want
-    assert all(p.default is False for p in port_params if p.name in differ_want)
 
 
 @pytest.mark.parametrize("device,want", [(None, "cpu"), ("cpu", "cpu")])
