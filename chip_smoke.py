@@ -1794,7 +1794,8 @@ def phase_pipeline(device, work: Path, card: str) -> dict:
         write_labeled_ply(root / "sim" / f"tls_{room}" / f"tls_{room}.ply", cloud,
                           np.full((n, 3), 128, np.uint8), np.zeros(n, np.uint16),
                           np.zeros(n, np.uint16))
-    log(f"[pipeline] two synthetic rooms ({sizes}) written in {time.time() - t0:.1f} s")
+    log(f"[pipeline] two synthetic rooms ({sizes}) written in {time.time() - t0:.1f} s "
+        f"(host of {card})")
     cfg = PipelineConfig()
     cfg.data.data_root = str(root / "data")
     cfg.data.output_root = str(root / "outputs")
@@ -1840,7 +1841,7 @@ def phase_pipeline(device, work: Path, card: str) -> dict:
         require(labeled[scene] > 100_000 and len(np.unique(data["sem"])) > 2,
                 f"pipeline: {scene} labeled PLY {labeled[scene]} points")
         log(f"[pipeline] {scene}: the reference reader walked {labeled[scene]} labeled "
-            f"points in {time.time() - t0:.1f} s")
+            f"points in {time.time() - t0:.1f} s (host of {card})")
     require(all(len(stages.get(st, ())) == len(scenes) for st in STAGES),
             f"pipeline: stage calls {stages}")
     return dict(wall_s=wall, rooms_per_hour=report["rooms_per_hour"], stage_seconds=stages,
@@ -1935,7 +1936,8 @@ def phase_multidevice(device, work: Path, card: str) -> dict:
                        for k in ("points", "t", "mask"))
             scans[backend] = dict(rays=int(got.mask.numel()), hits=int(got.mask.sum()),
                                   bit_equal=same, seconds=sharded_s)
-            log(f"[multi] scan_waypoints_sharded BLK2GO x 40 poses on {backend}: {scans[backend]}, "
+            log(f"[multi] scan_waypoints_sharded BLK2GO x 40 poses on {backend}: "
+                f"{scans[backend]}, "
                 f"launches {launches[f'scan_{backend}']} on {card}")
             require(same, f"sharded scan ({backend}) differs from scan_waypoints")
             key = "raycast_pairs" if backend == "pairs" else "raycast_culled"

@@ -12,8 +12,9 @@ the last pass steady.  The last pass is held to the golden test's format
 contracts: the labeled PLY read back by a point-by-point reference reader
 (kept here), more than 50,000 points, the detection JSON, the statistics
 text, the evaluation report.  Prints one JSON line with cold and steady
-per-stage seconds and the card's name and power limit; exits non-zero on
-any parity failure.  ``run_gate(device=...)`` runs it in-process.
+per-stage seconds beside the card's name and power limit (the only numbers
+it prints); exits non-zero on any parity failure.  ``run_gate(device=...)``
+runs it in-process.
 """
 
 from __future__ import annotations
@@ -132,7 +133,6 @@ def run_pass(root: Path, tag: str, device=None):
                 raise AssertionError(f"{stage}: {entry}")
         sync(device)
         stage_seconds[stage] = time.time() - t0
-        print(f"[gate{tag}] {stage}: {stage_seconds[stage]:.2f}s", flush=True)
     return stage_seconds, sim_root, eval_txt
 
 
