@@ -20,10 +20,12 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    give the same slot on >= 99.99 % of rays and
    t within 1e-5 relative.  Both times each;
 4. the main path at real scale: a 638,976-triangle room and a 600 k-point
-   S3DIS-format TLS room written from the same surfaces, then
-   ``run_single_scene_simulation`` with the BLK2GO profile and again with
-   the dense 32-line profile (20 requested waypoints; the planner densifies
-   them to 40).  Each run must launch the kernel, give every frame points and
+   S3DIS-format TLS room written from the same surfaces, then what
+   ``run_single_scene_simulation`` runs, with the pair kernel selected
+   through the config (``raycast_engine.backend: mxu``; ``run_scene``), with
+   the BLK2GO profile and again with the dense 32-line profile (20
+   requested waypoints; the planner densifies them to 40).  Each run must
+   launch the pair kernels, give every frame points and
    write the labeled PLY; the labels of 100 k sampled points must equal a
    scipy cKDTree 1-NN into the TLS cloud on >= 99.9 %.  Then the run's own
    rays are rebuilt from its poses and seed and cast again exactly as the
@@ -88,8 +90,8 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    and ``synthetic_room(700_000, seed=1)`` (``Area_1_office_2``) with its own
    600 k TLS room, BLK2GO, 20 requested waypoints, the asynchronous export,
    both rooms' labels prewarmed (``prewarm_labels``).  Both rooms must
-   succeed, each must claim its prewarm, the pair prepass and the walk must
-   launch once a room (counts read after the last export drained), the
+   succeed, each must claim its prewarm, one scan a room must launch the
+   kernel "auto" selects (counts read after the last export drained), the
    labels of each must pass the cKDTree check, and a second ``main`` must
    skip both.  Each room's stage seconds and the rooms per hour are logged.
 10. the preprocess stage (``phase_preprocess``): ``preprocess_room`` on a
@@ -113,9 +115,9 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    cKDTree on the same subsets within 1e-4 relative.  Torch ops, no hand
    kernel.
 12. the scan of the reconstruction (``phase_recon_sim``): the JAX bench's
-   headline workload, ``run_single_scene_simulation`` of the recon
-   ``mesh_dense.ply`` with the dense 32-line profile, 20 waypoints and the
-   preprocess room's labels.  The prepass and the walk must launch once
+   headline workload, the sim stage (``run_scene``, backend ``mxu``) of the
+   recon ``mesh_dense.ply`` with the dense 32-line profile, 20 waypoints and
+   the preprocess room's labels.  The prepass and the walk must launch once
    each; labels against cKDTree >= 99.9 %; hit fraction > 0.9; scan points
    to the TLS cloud within 2 voxels (mean) and 4 (p95); the run's own rays
    to the raycast contract of phase 4, and both pair kernels against their
@@ -134,24 +136,50 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    S3DIS-layout rooms from ``bench_pipeline.synth_room`` (600 k shell points
    each) with the shipped config's values (voxel 0.03, BLK2GO, 20
    waypoints), figures off, and each room's TLS cloud as a LiDAR-Net scene
-   for the eval stage: all five stages done for both rooms, one prepass and
-   one walk launch a room, a second call that skips every stage, each
+   for the eval stage: all five stages done for both rooms, one scan a room
+   on the kernel "auto" selects (``auto_launches``), a second call that
+   skips every stage, each
    labeled PLY walked by the release gate's reference reader; stage seconds
    and rooms per hour.
 16. the release gate (``phase_release_gate``): ``release_gate_lroom.run_gate``
    on tests/fixtures/golden_room_l, two passes, its parity checks, cold and
-   steady seconds; one prepass and one walk launch a pass.
+   steady seconds; one scan a pass on the kernel "auto" selects.
 17. the multi-device paths (``phase_multidevice``): an NCCL group of one rank
    through a ``FileStore``; ``scan_waypoints_sharded`` of the main room
    (BLK2GO, 20 waypoints) on the pair and the culled kernel, equal to
    ``scan_waypoints`` bit for bit; the triangle-sharded raycast of all its
    rays with S = 2 and 4 shard-local launches combined in this process
    (``parallel.shard``'s pieces), the culled kernel's equal bit for bit to
-   the unsharded kernel, the pair kernel's held to the raycast contract;
+   the unsharded kernel, the pair kernel's held to the raycast contract
+   against the unsharded pair run (over 5 cm on at most 0.1 % of the rays)
+   and against the brute oracle (``pair_shards_vs_oracle``: the ten tiles
+   ``check_own_rays`` draws plus every ray whose shard hit is over 5 cm
+   from the unsharded run's or on one side only; a ray over 5 cm from the
+   oracle must be a float64-proven graze with the centre of the shard that
+   holds the nearer triangle, at most 0.1 %);
    ``run_scenes_device_parallel`` on [cuda:0, cuda:0] over phase 9's two
    rooms, their clouds equal byte for byte to the sequential ``main``'s;
    ``sharded_grid_nn`` of scan points into the TLS cloud equal to the
    one-card 1-NN; the dry run (``parallel.dryrun``) at world size 1.
+18. the port's bench (``phase_bench``): ``bench.run`` at the JAX bench's
+   sizes (box, incoherent unsorted and sorted, open scene, recon mesh,
+   BLK2GO x 80, each on both kernels; the CPU baseline in a child process):
+   its line parses and fits 1,900 characters, every workload has both
+   kernels' figures with min <= median <= max, each pair call launched one
+   prepass and one walk and each culled call one culled kernel, the two
+   kernels' hit masks agree >= 99 % and hit points p99 <= 5 mm where they
+   cast the same rays, the recon mesh has faces, the CPU baseline ran; on
+   20,480 sampled open-scene rays the culled kernel's misses equal the
+   brute oracle's and the pair kernel's agree on >= 99.9 %.
+19. the label-transfer probe (``phase_label_probe``): 2.56 M queries x
+   630 k references, every piece of the grid 1-NN and of ``LabelGrid``
+   timed; the instrumented 1-NN equal to the library call on every row, its
+   distances on 100 k sampled queries equal to a float64 cKDTree's within
+   1e-6 m, ``LabelGrid`` at the library's distances.
+
+Each phase's seconds are logged.  The launch checks of the batch, the
+pipeline, the release gate and the room-parallel driver follow the kernel
+that "auto" selects (``auto_launches``).
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the fp32 operations these rays need: the FMA
@@ -167,7 +195,8 @@ Every sim-stage call passes ``save_visualizations=False``: the card's host
 has no matplotlib, and a figure asked for there raises.
 The second-to-last line is the kernels' JSON record (each kernel's
 ``launches`` summed over the paths that ran it, ``launches_by_path`` each
-path's own count), the last line
+path's own count; the bench's paths are ``bench_<workload>_<kernel>``), the
+last line
 ``{"ok": true, "device": {...}}``.  Needs ``torch.cuda.is_available()``.
 """
 
@@ -747,6 +776,24 @@ def graze_bound(o, d, tri, center):
     return clear, bound
 
 
+def contract_tiles(p: dict, n_rays: int, n_tiles: int, device):
+    """``n_tiles`` whole tiles of ``prepare_pairs``' tiling of ``n_rays``
+    rays, half from tiles that JAX's caps overflow (its walk-all fallback's
+    rays): (ray indices on ``device``, tiles, overflowed tiles drawn, the
+    overflow flags of every whole tile)."""
+    import torch
+
+    tile = p["tile"]
+    over_cap = p["overflow"][:n_rays // tile].cpu().numpy()
+    rng = np.random.default_rng(4)
+    ovf, lst = np.flatnonzero(over_cap), np.flatnonzero(~over_cap)
+    k_ovf = min(len(ovf), n_tiles // 2)
+    tiles = np.sort(np.concatenate([rng.choice(ovf, k_ovf, replace=False),
+                                    rng.choice(lst, n_tiles - k_ovf, replace=False)]))
+    idx = torch.from_numpy((tiles[:, None] * tile + np.arange(tile)).reshape(-1)).to(device)
+    return idx, tiles, k_ovf, over_cap
+
+
 def check_own_rays(asset, intr, sc, tri_xyz, seed: int, device, n_tiles: int = 10):
     """Rebuild the run's rays and cast them as the scan does; check that this
     gives back the run's frames, then hold ``n_tiles`` whole tiles of it to
@@ -781,17 +828,8 @@ def check_own_rays(asset, intr, sc, tri_xyz, seed: int, device, n_tiles: int = 1
             frame_err = max(frame_err, float(np.abs(mine - frame.points).max()))
     require(frame_err <= 1e-5, f"frames not reproduced: max point error {frame_err} m")
 
-    # Whole tiles of the scan's tiling; half from tiles that JAX's caps
-    # overflow (its walk-all fallback's rays).
+    idx, tiles, k_ovf, over_cap = contract_tiles(p, o.shape[0], n_tiles, device)
     tile = p["tile"]
-    n_full = o.shape[0] // tile
-    over_cap = p["overflow"][:n_full].cpu().numpy()
-    rng = np.random.default_rng(4)
-    ovf, lst = np.flatnonzero(over_cap), np.flatnonzero(~over_cap)
-    k_ovf = min(len(ovf), n_tiles // 2)
-    tiles = np.sort(np.concatenate([rng.choice(ovf, k_ovf, replace=False),
-                                    rng.choice(lst, n_tiles - k_ovf, replace=False)]))
-    idx = torch.from_numpy((tiles[:, None] * tile + np.arange(tile)).reshape(-1)).to(device)
     ro = raycast_asset(o[idx], d[idx], asset, backend="brute", t_max=max_range)
     hk, ho = rk.hit[idx].cpu().numpy(), ro.hit.cpu().numpy()
     both = hk & ho
@@ -830,11 +868,51 @@ def check_own_rays(asset, intr, sc, tri_xyz, seed: int, device, n_tiles: int = 1
     return res, p
 
 
+def run_scene(mesh_path: Path, scene_name: str, out_base: Path, backend: str,
+              data_root: Path, *, use_blk2go: bool, device, room: str = "office_1"):
+    """What ``run_single_scene_simulation`` runs (BLK2GO or dense 32-line, 20
+    requested waypoints, seed 0, figures off), with the config's
+    ``raycast_engine.backend`` set to ``backend`` (a JAX name): the same
+    config dict, simulator and auto-trajectory run."""
+    from ipcgen_tpu_torch.sim.simulator import S3DISSimulator
+
+    config = {
+        "raycast_engine": {"use_gpu": True, "backend": backend},
+        "trajectory": {"robot_height": 1.0},
+        "enable_mesh_visualization": False,
+        "s3dis_data_root": str(data_root),
+        "area": "Area_1",
+        "room": room,
+        "seed": 0,
+        "lidar": {"horizontal_res": None},
+    }
+    sim = S3DISSimulator(config, use_dense_lidar=not use_blk2go, use_blk2go=use_blk2go,
+                         device=device)
+    return sim.run_auto_simulation(str(mesh_path), num_waypoints=20,
+                                   output_dir=Path(out_base) / scene_name,
+                                   scene_name=scene_name, save_visualizations=False)
+
+
+def auto_launches(n: int) -> dict:
+    """The launches of ``n`` scans on the "auto" backend
+    (``sim.simulator.port_backend``): a prepass and a walk a scan on the pair
+    kernel, one culled launch on the culled kernel."""
+    from ipcgen_tpu_torch.sim.simulator import port_backend
+
+    pairs = port_backend("auto") == "pairs"
+    return {"raycast_pairs": n * pairs, "raycast_pairs_prepass": n * pairs,
+            "raycast_culled": n * (not pairs)}
+
+
+def launched(launches: dict, want: dict) -> bool:
+    return all(launches[k] == v for k, v in want.items())
+
+
 def phase_main_path(device, work: Path, card: str):
     from ipcgen_tpu_torch.containers.mesh import TriMesh
     from ipcgen_tpu_torch.ops import _kernels
     from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
-    from ipcgen_tpu_torch.sim.simulator import S3DISSimulator, run_single_scene_simulation
+    from ipcgen_tpu_torch.sim.simulator import S3DISSimulator
     from ipcgen_tpu_torch.utils.device import sync
     from ipcgen_tpu_torch.utils.synthetic import synthetic_room, write_s3dis_room
 
@@ -853,13 +931,8 @@ def phase_main_path(device, work: Path, card: str):
         for k in _kernels.LAUNCHES:
             _kernels.LAUNCHES[k] = 0
         t0 = time.time()
-        sc = run_single_scene_simulation(
-            str(mesh_path), scene_name=f"synth_{profile}", num_waypoints=20,
-            output_base_dir=str(work / "out"), use_blk2go=profile == "blk2go",
-            use_dense_lidar=profile == "dense32", s3dis_data_root=str(data_root),
-            area="Area_1", room="office_1", seed=0, save_visualizations=False,
-            device=device,
-        )
+        sc = run_scene(mesh_path, f"synth_{profile}", work / "out", "mxu", data_root,
+                       use_blk2go=profile == "blk2go", device=device)
         sync(device)
         wall = time.time() - t0
         launches = dict(_kernels.LAUNCHES)
@@ -1170,9 +1243,9 @@ def phase_batch(device, work: Path, card: str, mesh_path: Path, data_root: Path)
         f"{wall:.2f} s wall, main's total {res['total_time']:.2f} s, launches {launches}")
     require(done == list(rooms) and not res["failed"], f"batch: {res}")
     n = len(rooms)
-    require(launches["raycast_pairs"] == n and launches["raycast_pairs_prepass"] == n
-            and launches["raycast_culled"] == 0,
-            f"batch: one pair prepass and one walk a room expected: {launches}")
+    require(launched(launches, auto_launches(n)),
+            f"batch: {auto_launches(n)} expected (the auto backend, a scan a room): "
+            f"{launches}")
     per_room = {}
     for name, sc in res["successful"]:
         room = rooms[name]
@@ -1530,7 +1603,7 @@ def phase_recon_sim(device, work: Path, card: str, tls_tree) -> dict:
     from ipcgen_tpu_torch.containers.mesh import TriMesh
     from ipcgen_tpu_torch.ops import _kernels
     from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
-    from ipcgen_tpu_torch.sim.simulator import S3DISSimulator, run_single_scene_simulation
+    from ipcgen_tpu_torch.sim.simulator import S3DISSimulator
     from ipcgen_tpu_torch.utils.device import sync
 
     mesh_path = work / "recon_out" / "Area_1_office_1" / "mesh_dense.ply"
@@ -1538,11 +1611,8 @@ def phase_recon_sim(device, work: Path, card: str, tls_tree) -> dict:
     for k in _kernels.LAUNCHES:
         _kernels.LAUNCHES[k] = 0
     t0 = time.time()
-    sc = run_single_scene_simulation(
-        str(mesh_path), scene_name="recon_dense32", num_waypoints=20,
-        output_base_dir=str(work / "recon_sim"), use_blk2go=False, use_dense_lidar=True,
-        s3dis_data_root=str(data_root), area="Area_1", room="office_1", seed=0,
-        save_visualizations=False, device=device)
+    sc = run_scene(mesh_path, "recon_dense32", work / "recon_sim", "mxu", data_root,
+                   use_blk2go=False, device=device)
     sync(device)
     wall = time.time() - t0
     launches = dict(_kernels.LAUNCHES)
@@ -1829,9 +1899,9 @@ def phase_pipeline(device, work: Path, card: str) -> dict:
         require(all(again["rooms"][scene][st].startswith("skipped") for st in STAGES),
                 f"pipeline rerun: {scene} {again['rooms'][scene]}")
     n = len(scenes)
-    require(launches["raycast_pairs"] == n and launches["raycast_pairs_prepass"] == n
-            and launches["raycast_culled"] == 0,
-            f"pipeline: one prepass and one walk launch a room expected: {launches}")
+    require(launched(launches, auto_launches(n)),
+            f"pipeline: {auto_launches(n)} expected (the auto backend, a scan a room): "
+            f"{launches}")
     labeled = {}
     for scene in scenes:
         t0 = time.time()
@@ -1881,6 +1951,77 @@ def pairs_agreement(t_a, s_a, p_a, t_b, s_b, p_b) -> dict:
                 over_5cm_frac=float((err > 0.05).float().mean()))
 
 
+def pair_shards_vs_oracle(o, d, t, slot, t1, s1, asset, asset_p, n_shards: int,
+                          tri_xyz, p: dict, max_range: float) -> dict:
+    """The combined pair shards (t, slot over the padded ``asset_p``) held to
+    the raycast contract against the brute oracle on the ten tiles that
+    ``check_own_rays`` draws plus every candidate ray: a hit more than 5 cm
+    from the unsharded pair run (t1, s1), or a hit on one side only.  A ray
+    over 5 cm from the oracle passes only as a float64-proven graze of the
+    nearer triangle's edge (``graze_bound``), with the centre of the shard
+    that holds that triangle, which is what its panels were centred on; at
+    most 0.1 % of the rays.  ``p``: ``prepare_pairs`` of the unsharded run
+    (its tiling and overflow flags)."""
+    import torch
+
+    from ipcgen_tpu_torch.ops.raycast import finalize_result, raycast_brute_components
+    from ipcgen_tpu_torch.ops.raycast_pairs import _nanmax, _nanmin
+    from ipcgen_tpu_torch.parallel import shard
+
+    shard_res = finalize_result(o, d, t, slot, asset_p)
+    one_res = finalize_result(o, d, t1, s1, asset)
+    both = shard_res.hit & one_res.hit
+    far = torch.zeros_like(both)
+    far[both] = (shard_res.points[both] - one_res.points[both]).norm(dim=1) > 0.05
+    cand = torch.nonzero(far | (shard_res.hit != one_res.hit)).flatten()
+    sample, _, _, _ = contract_tiles(p, o.shape[0], 10, o.device)
+    idx = torch.unique(torch.cat([sample, cand]))
+    t_o, s_o = raycast_brute_components(o[idx], d[idx], asset.tri_data, max_range)
+    ro = finalize_result(o[idx], d[idx], t_o, s_o, asset)
+    hk, ho = shard_res.hit[idx].cpu().numpy(), ro.hit.cpu().numpy()
+    tk, to = shard_res.tri_id[idx].cpu().numpy(), ro.tri_id.cpu().numpy()
+    both = hk & ho
+    pe = np.linalg.norm(shard_res.points[idx].cpu().numpy()[both]
+                        - ro.points.cpu().numpy()[both], axis=1)
+    over = np.flatnonzero(both)[pe > 0.05]
+    # The nearer triangle: the shard's when its t is the smaller (it hit
+    # what the oracle misses), else the oracle's (the shard missed it).
+    kernel_nearer = t[idx].cpu().numpy()[over] < t_o.cpu().numpy()[over]
+    nearer_tri = np.where(kernel_nearer, tk[over], to[over])
+    nearer_slot = np.where(kernel_nearer, slot[idx].cpu().numpy()[over],
+                           s_o.cpu().numpy()[over])
+    per_shard = asset_p.num_blocks // n_shards * asset_p.block_size
+    centers = np.stack([
+        ((_nanmin(lo, 0) + _nanmax(hi, 0)) * 0.5).cpu().numpy().astype(np.float64)
+        for _, lo, hi, _, _ in (shard.block_shard(asset_p, n_shards, i)
+                                for i in range(n_shards))])
+    of_shard = nearer_slot // per_shard
+    sel = idx.cpu().numpy()[over]
+    clear, bound = np.zeros(len(over)), np.zeros(len(over))
+    for i in np.unique(of_shard):
+        m = of_shard == i
+        clear[m], bound[m] = graze_bound(o[sel[m]].cpu().numpy(), d[sel[m]].cpu().numpy(),
+                                         tri_xyz[nearer_tri[m]], centers[i])
+    pe_rest = pe[pe <= 0.05]
+    res = dict(sample_rays=int(sample.numel()), candidates=int(cand.numel()),
+               rays=int(idx.numel()), hit_agree=float((hk == ho).mean()),
+               same_tri=float((tk[both] == to[both]).mean()),
+               p99_mm=float(np.percentile(pe, 99) * 1e3),
+               max_mm=float(pe.max() * 1e3),
+               max_mm_without_grazes=float(pe_rest.max() * 1e3) if len(pe_rest) else 0.0,
+               grazes=[dict(ray=int(r), shard=int(s), err_mm=float(e * 1e3),
+                            clearance_um=float(c * 1e6), bound_um=float(b * 1e6))
+                       for r, s, e, c, b in zip(sel, of_shard, pe[pe > 0.05], clear, bound)])
+    require(res["hit_agree"] >= 0.99, f"S={n_shards} pair shards vs oracle: hits {res}")
+    require(res["same_tri"] >= 0.99, f"S={n_shards} pair shards vs oracle: triangles {res}")
+    require(res["p99_mm"] <= 5.0, f"S={n_shards} pair shards vs oracle: p99 {res}")
+    require(bool(np.all(clear <= bound)),
+            f"S={n_shards} pair shards: a ray over 5 cm is not an edge graze: {res}")
+    require(len(over) <= MAX_GRAZE_FRAC * idx.numel(),
+            f"S={n_shards} pair shards: too many edge grazes: {res}")
+    return res
+
+
 def phase_multidevice(device, work: Path, card: str) -> dict:
     """The multi-device paths on the card: an NCCL group of one rank through
     a ``FileStore``; ``scan_waypoints_sharded`` of the main room (BLK2GO, 20
@@ -1899,6 +2040,7 @@ def phase_multidevice(device, work: Path, card: str) -> dict:
     from ipcgen_tpu_torch.ops import _kernels
     from ipcgen_tpu_torch.ops.grid_nn import nearest_neighbor_indices_grid
     from ipcgen_tpu_torch.ops.raycast import finalize_result
+    from ipcgen_tpu_torch.ops.raycast_pairs import prepare_pairs
     from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
     from ipcgen_tpu_torch.parallel import dryrun, shard
     from ipcgen_tpu_torch.sim.scan import scan_rays, scan_waypoints
@@ -1954,6 +2096,11 @@ def phase_multidevice(device, work: Path, card: str) -> dict:
                 o, d, asset.tri_data, asset.block_lo, asset.block_hi, asset.super_lo,
                 asset.super_hi, super_factor=asset.super_factor, t_max=max_range,
                 backend=backend)
+        # The unsharded pair run's tiling, for the oracle sample of the pair
+        # shards (outside every counted window).
+        pairs_p = prepare_pairs(o, d, asset.tri_data, asset.block_lo, asset.block_hi,
+                                t_max=max_range)
+        tri_xyz = mesh_tri.vertices[mesh_tri.triangles]
         tri_shards = {}
         for n_shards in SHARDS:
             asset_p = shard.shard_asset_blocks(asset, n_shards)
@@ -1987,6 +2134,9 @@ def phase_multidevice(device, work: Path, card: str) -> dict:
                             f"S={n_shards} pair shards off the contract: {res}")
                     require(shard_launches["raycast_pairs"] == n_shards,
                             f"S={n_shards} pair launches {shard_launches}")
+                    res["oracle"] = pair_shards_vs_oracle(o, d, t, slot, t1, s1, asset,
+                                                          asset_p, n_shards, tri_xyz,
+                                                          pairs_p, max_range)
                 res.update(rays=int(o.shape[0]), seconds=secs, launches=shard_launches)
                 tri_shards[f"{backend}_S{n_shards}"] = res
                 log(f"[multi] triangle shards S={n_shards}, {backend}, {o.shape[0]} rays: "
@@ -2005,9 +2155,8 @@ def phase_multidevice(device, work: Path, card: str) -> dict:
         dp_s = time.time() - t0
         launches["room_dp"] = dict(_kernels.LAUNCHES)
         require(not failed and len(ok) == len(jobs) == 2, f"room DP: {ok} {failed}")
-        require(launches["room_dp"]["raycast_pairs"] == 2
-                and launches["room_dp"]["raycast_pairs_prepass"] == 2,
-                f"room DP launches {launches['room_dp']}")
+        require(launched(launches["room_dp"], auto_launches(2)),
+                f"room DP launches {launches['room_dp']}, expected {auto_launches(2)}")
         for name, _ in ok:
             for f in ("combined_pointcloud_with_label.ply", "combined_pointcloud.ply"):
                 require((work / "roomdp_out" / name / f).read_bytes()
@@ -2051,6 +2200,112 @@ def phase_multidevice(device, work: Path, card: str) -> dict:
                 grid_nn_queries=int(len(queries)), dryrun=dry, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# The port's bench and the label-transfer probe
+# ---------------------------------------------------------------------------
+BENCH_DIRECT = ("incoherent_random_rays", "incoherent_random_rays_sorted",
+                "open_scene_32line")
+OPEN_SCENE_SAMPLE = 20_480
+
+
+def phase_bench(device, card: str) -> dict:
+    """``bench.run`` at the JAX bench's sizes, its CPU baseline in a child
+    process: the compact line parses and fits the budget; every workload has
+    pair and culled figures with min <= median <= max; each pair call
+    launched one prepass and one walk, each culled call one culled kernel;
+    where both kernels cast the same rays, hit masks agree >= 99 % and hit
+    points p99 <= 5 mm; the recon mesh has faces; the CPU baseline ran.  On
+    a sample of the open scene's rays the culled kernel's miss mask equals
+    the brute oracle's and the pair kernel's agrees on >= 99.9 %."""
+    import torch
+
+    from ipcgen_tpu_torch import bench
+    from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.ops.raycast import raycast_asset
+    from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
+    from ipcgen_tpu_torch.utils.synthetic import synthetic_room
+
+    t0 = time.time()
+    out, line = bench.run(device)
+    seconds = time.time() - t0
+    log(f"[bench] {len(line)} characters in {seconds:.1f} s on {card}: {line}")
+    compact = json.loads(line)
+    require(len(line) <= bench.LINE_BUDGET and "workloads" in compact["details"],
+            f"bench line of {len(line)} characters: {line}")
+    table = bench._workload_table(out)
+    by_path = {}
+    for w, m in [*table.items(), ("box_auto", {out["details"]["auto"]:
+                                                out["details"]["box"]["auto"]})]:
+        for k, s in m.items():
+            if k not in bench.KERNELS:
+                continue
+            for mode in ("pipelined_s", "per_call_s"):
+                sp = s[mode]
+                require(sp["min"] <= sp["median"] <= sp["max"], f"bench {w} {k} {mode}: {sp}")
+            want = ({"raycast_pairs": s["calls"], "raycast_pairs_prepass": s["calls"]}
+                    if k == "pairs" else {"raycast_culled": s["calls"]})
+            require(s["launches"] == want,
+                    f"bench {w} {k}: launches {s['launches']} for {s['calls']} calls")
+            by_path[f"bench_{w}_{k}"] = {n: s["launches"].get(n, 0) for n in _kernels.LAUNCHES}
+    agreement = {}
+    for name in BENCH_DIRECT:
+        a = agreement[name] = out["details"]["workloads"][name]["agreement"]
+        require(a["hit_agree"] >= 0.99 and a["p99_mm"] <= 5.0,
+                f"bench {name}: pairs vs culled {a}")
+    rm = out["details"]["production_workloads"]["reconstructed_mesh_32line"]
+    require(rm["mesh_faces"] > 0, "bench: the recon mesh has no faces")
+    require(out["details"]["baseline_rays_per_sec"] is not None, "bench: no CPU baseline")
+
+    # The open scene's misses against the oracle, on a sample of its rays.
+    verts, tris = synthetic_room(bench.BENCH_TRIS)
+    open_asset = build_scene_asset(verts, bench._open_scene_tris(verts, tris), device=device)
+    o, d = bench._open_scene_rays(128_000, 20)
+    pick = np.sort(np.random.default_rng(5).choice(len(o), OPEN_SCENE_SAMPLE, replace=False))
+    o, d = bench._as_rays(o[pick], d[pick], device)
+    miss = {k: ~raycast_asset(o, d, open_asset, backend=k, t_max=20.0, sort_rays=False).hit
+            for k in ("pairs", "culled", "brute")}
+    open_check = dict(rays=OPEN_SCENE_SAMPLE, brute_miss=float(miss["brute"].float().mean()),
+                      **{f"{k}_miss_agree": float((miss[k] == miss["brute"]).float().mean())
+                         for k in bench.KERNELS},
+                      pairs_miss_differ=int((miss["pairs"] != miss["brute"]).sum()))
+    log(f"[bench] open scene, {OPEN_SCENE_SAMPLE} sampled rays vs the oracle: {open_check}")
+    require(open_check["brute_miss"] > 0, f"bench open scene: no miss {open_check}")
+    require(torch.equal(miss["culled"], miss["brute"]),
+            f"bench open scene: culled misses differ from the oracle's {open_check}")
+    require(open_check["pairs_miss_agree"] >= 0.999,
+            f"bench open scene: pair misses off the oracle's {open_check}")
+    return dict(seconds=seconds, line_chars=len(line), compact=compact,
+                agreement=agreement, open_scene=open_check, launches=by_path,
+                pair_lists={name: out["details"]["workloads"][name]["pair_lists"]
+                            for name in BENCH_DIRECT})
+
+
+LABEL_SAMPLE = 100_000
+
+
+def phase_label_probe(device, card: str) -> dict:
+    """``label_transfer_probe.run`` at 2.56 M queries x 630 k refs: the
+    instrumented 1-NN equals the library call on every row, and on a 100 k
+    sample its distances equal a float64 scipy cKDTree query within 1e-6 m;
+    ``LabelGrid``'s answers are at the library's distances."""
+    from scipy.spatial import cKDTree
+
+    from ipcgen_tpu_torch import label_transfer_probe
+
+    report, (q, refs, idx) = label_transfer_probe.run(device)
+    pick = np.random.default_rng(6).choice(len(q), LABEL_SAMPLE, replace=False)
+    qs = q[pick].astype(np.float64)
+    want, _ = cKDTree(refs.astype(np.float64)).query(qs)
+    got = np.linalg.norm(qs - refs[idx[pick]].astype(np.float64), axis=1)
+    report["ckdtree_max_abs_m"] = float(np.abs(got - want).max())
+    log(f"[label-probe] on {card}: {json.dumps(report)}")
+    require(report["mismatch_rows"] == 0, f"label probe: {report['mismatch_rows']} rows "
+            "differ from the library call")
+    require(report["ckdtree_max_abs_m"] <= 1e-6, f"label probe vs cKDTree: {report}")
+    require(report["label_grid_dist_mismatch_rows"] == 0, f"LabelGrid: {report}")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -2081,29 +2336,47 @@ def main() -> int:
     v, t = synthetic_room(TRIANGLES_KERNEL_CHECK)
     asset = build_scene_asset(v, t, device=device)
     log(f"[kernel] room: {len(t)} triangles, {asset.num_blocks} blocks")
-    checks, prepass_checks = phase_kernel_check(device, asset)
-    culled_checks = phase_culled_kernel_check(device, asset)
-    probe = phase_probe(device, asset)
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        phase_s[name] = time.time() - t0
+        log(f"[phase] {name}: {phase_s[name]:.1f} s")
+        return out
+
+    checks, prepass_checks = phase("kernel_check", phase_kernel_check, device, asset)
+    culled_checks = phase("culled_kernel_check", phase_culled_kernel_check, device, asset)
+    probe = phase("probe", phase_probe, device, asset)
     del asset
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        runs, culled, occupancy, batch = phase_main_path(device, work, card)
-        preprocess = phase_preprocess(device, work, card)
+        runs, culled, occupancy, batch = phase("main_path", phase_main_path, device, work,
+                                               card)
+        preprocess = phase("preprocess", phase_preprocess, device, work, card)
         tls_tree = tls_tree_of(work)
-        recon = phase_recon(device, work, card, tls_tree)
-        runs["recon_dense32"] = phase_recon_sim(device, work, card, tls_tree)
-        bbox_eval = phase_bbox_eval(device, work, card)
-        pipeline = phase_pipeline(device, work, card)
+        recon = phase("recon", phase_recon, device, work, card, tls_tree)
+        runs["recon_dense32"] = phase("recon_sim", phase_recon_sim, device, work, card,
+                                      tls_tree)
+        bbox_eval = phase("bbox_eval", phase_bbox_eval, device, work, card)
+        pipeline = phase("pipeline", phase_pipeline, device, work, card)
         for k in _kernels.LAUNCHES:
             _kernels.LAUNCHES[k] = 0
-        gate = phase_release_gate(device, work, card)
+        gate = phase("release_gate", phase_release_gate, device, work, card)
         gate["launches"] = dict(_kernels.LAUNCHES)
-        require(gate["launches"]["raycast_pairs"] == 2
-                and gate["launches"]["raycast_pairs_prepass"] == 2,
-                f"release gate: one prepass and one walk a pass expected: {gate['launches']}")
-        multi = phase_multidevice(device, work, card)
+        require(launched(gate["launches"], auto_launches(2)),
+                f"release gate: {auto_launches(2)} expected (the auto backend, a scan a "
+                f"pass): {gate['launches']}")
+        multi = phase("multidevice", phase_multidevice, device, work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    for k in _kernels.LAUNCHES:
+        _kernels.LAUNCHES[k] = 0
+    bench_res = phase("bench", phase_bench, device, card)
+    for k in _kernels.LAUNCHES:
+        _kernels.LAUNCHES[k] = 0
+    label_probe = phase("label_probe", phase_label_probe, device, card)
+    log(f"[summary] phase seconds {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     log(f"[summary] batch {json.dumps({k: v for k, v in batch.items() if k != 'rooms'})}; "
         f"preprocess warm spans {json.dumps(preprocess['runs'][-1]['spans'])}")
     log(f"[summary] recon warm {json.dumps(recon['runs'][-1]['variants'])}; splat and "
@@ -2116,6 +2389,10 @@ def main() -> int:
     log(f"[summary] pipeline {json.dumps({k: v for k, v in pipeline.items()})}; release gate "
         f"{json.dumps(gate)}; on {card}")
     log(f"[summary] multi-device {json.dumps({k: v for k, v in multi.items() if k != 'launches'})}")
+    log(f"[summary] bench on {card}: {bench_res['seconds']:.1f} s, agreement "
+        f"{json.dumps(bench_res['agreement'])}, pair lists {json.dumps(bench_res['pair_lists'])}, "
+        f"open scene {json.dumps(bench_res['open_scene'])}; label probe "
+        f"{json.dumps(label_probe)}")
 
     # Every path's own launches, each counted from 0 just before it: the
     # two pair runs of phase_main_path, the culled runs, the batch, the scan
@@ -2126,7 +2403,8 @@ def main() -> int:
                    culled_dense32=culled["dense32"]["launches"], batch=batch["launches"],
                    pipeline=pipeline["launches"], release_gate=gate["launches"],
                    **{f"multi_{k}": v for k, v in multi["launches"].items()},
-                   **{f"multi_tri_{k}": v["launches"] for k, v in multi["tri_shards"].items()})
+                   **{f"multi_tri_{k}": v["launches"] for k, v in multi["tri_shards"].items()},
+                   **bench_res["launches"])
 
     def path_launches(key):
         return {k: v[key] for k, v in by_path.items() if v[key]}

@@ -1,29 +1,33 @@
-"""Stage breakdown of the fused scan on one GPU.
+"""Stage breakdown of the fused scan on one GPU, on the pair path and on
+the culled path.
 
     python -m ipcgen_tpu_torch.profile_scan [--out FILE.json]
 
 Builds the 638,976-triangle synthetic room (``synthetic_room(700_000)``, the
 main room of ``chip_smoke.py``), plans the auto trajectory as the simulator
 does (20 requested waypoints, seed 0) and, for the BLK2GO and dense 32-line
-profiles, times with host timers around ``torch.cuda.synchronize`` (mean of
-``REPS`` after one warm-up):
+profiles and each backend (``profile_profile(..., backend=)``: "pairs" and
+"culled"), times with host timers around ``torch.cuda.synchronize`` (mean
+of ``REPS`` after one warm-up):
 
 - ``scan_waypoints`` as the sim stage calls it (``outputs="unordered"``);
-- its parts: the rays (``scan_rays``), everything up to the walk
-  (``prepare_pairs``) and, inside it, ``build_trif`` and the exact prepass
-  (``exact_prepass``: count pass, CSR offsets with one host read, fill
-  pass), the walk kernel (``raycast_pairs_cuda`` on the flat pair list) and
-  ``finalize_result``;
-- from one prepass under ``torch.profiler``: the device time of its count
-  and fill passes, and the rest of the prepass (the pair-list build:
-  ``torch.cumsum`` of the list lengths, the host read that sizes the list,
-  allocation), which is the prepass time less the two passes;
-- the prepass counts: subtiles, pairs, mean and maximum list length, the
-  tiles JAX's caps would overflow, and the ray-triangle tests the walk runs
-  (25 fp32 FMAs, 50 flop, each);
+- its parts: the rays (``scan_rays``, in the backend's order) and, on the
+  pair path, everything up to the walk (``prepare_pairs``) and, inside it,
+  ``build_trif`` and the exact prepass (``exact_prepass``: count pass, CSR
+  offsets with one host read, fill pass), the walk kernel
+  (``raycast_pairs_cuda`` on the flat pair list); on the culled path the
+  kernel (``raycast_culled_cuda``); then ``finalize_result``;
+- pair path: from one prepass under ``torch.profiler``: the device time of
+  its count and fill passes, and the rest of the prepass (the pair-list
+  build: ``torch.cumsum`` of the list lengths, the host read that sizes the
+  list, allocation), which is the prepass time less the two passes;
+- pair path: the prepass counts: subtiles, pairs, mean and maximum list
+  length, the tiles JAX's caps would overflow, and the ray-triangle tests
+  the walk runs (25 fp32 FMAs, 50 flop, each);
 - one scan under ``torch.profiler``: device time by kernel name.
 
-Prints one JSON object (and writes it to ``--out``).  Needs a CUDA device.
+Prints one JSON object (``{profile: {backend: ...}}``, and writes it to
+``--out``).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -50,25 +54,65 @@ def _timed(fn):
     return (time.perf_counter() - t0) / REPS * 1e3, out
 
 
-def profile_profile(asset, intr, poses, device) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-
-    from ipcgen_tpu_torch.ops import _kernels
-    from ipcgen_tpu_torch.ops import raycast_pairs as rp
-    from ipcgen_tpu_torch.ops.raycast import finalize_result
+def profile_profile(asset, intr, poses, device, backend: str = "pairs") -> dict:
+    """The breakdown of one profile's scan on ``backend`` ("pairs" or
+    "culled")."""
+    from ipcgen_tpu_torch.ops.raycast_culled import t_init_for
     from ipcgen_tpu_torch.sim.scan import scan_rays, scan_waypoints
 
     def gen():
         return torch.Generator(device=device).manual_seed(0)
 
-    comps = (asset.tri_data, asset.block_lo, asset.block_hi)
-    max_range = float(intr.max_range)
-    st = {}
+    st = {"backend": backend}
     st["scan_waypoints_ms"], _ = _timed(
         lambda: scan_waypoints(asset, intr, poses, generator=gen(),
-                               outputs="unordered"))
+                               outputs="unordered", backend=backend))
     st["scan_rays_ms"], (o, d, _) = _timed(
-        lambda: scan_rays(intr, poses, gen(), device))
+        lambda: scan_rays(intr, poses, gen(), device, backend=backend))
+    if backend == "pairs":
+        _pair_parts(st, asset, intr, o, d)
+    elif backend == "culled":
+        from ipcgen_tpu_torch.ops import _kernels
+        from ipcgen_tpu_torch.ops.raycast import finalize_result
+
+        args = (o, d, asset.tri_data, asset.block_lo, asset.block_hi, asset.super_lo,
+                asset.super_hi, asset.super_factor, t_init_for(float(intr.max_range)))
+        st["culled_kernel_ms"], (t, slot) = _timed(
+            lambda: _kernels.raycast_culled_cuda(*args))
+        st["finalize_ms"], _ = _timed(lambda: finalize_result(o, d, t, slot, asset))
+        st["rays"] = int(o.shape[0])
+    else:
+        raise ValueError(f"profile_profile: unknown backend {backend!r}")
+    st["profiler_top_device_ms"] = _top_device_ms(
+        lambda: scan_waypoints(asset, intr, poses, generator=gen(), outputs="unordered",
+                               backend=backend))
+    return st
+
+
+def _top_device_ms(fn) -> list:
+    """Device time by kernel name of one call of ``fn`` under
+    ``torch.profiler``: [name, ms, calls] of the twelve longest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return [[e.key[:70], round(e.self_device_time_total / 1e3, 3), e.count]
+            for e in events[:12]]
+
+
+def _pair_parts(st: dict, asset, intr, o, d) -> None:
+    """The pair path's parts, passes and counts into ``st``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.ops import raycast_pairs as rp
+    from ipcgen_tpu_torch.ops.raycast import finalize_result
+
+    comps = (asset.tri_data, asset.block_lo, asset.block_hi)
+    max_range = float(intr.max_range)
     st["prepare_pairs_ms"], p = _timed(
         lambda: rp.prepare_pairs(o, d, *comps, t_max=max_range))
     tile = p["tile"]
@@ -107,16 +151,6 @@ def profile_profile(asset, intr, poses, device) -> dict:
         walk_tests=tests, walk_tests_per_s=tests / (st["walk_ms"] * 1e-3),
     )
     st["walk_tflops"] = st["walk_tests_per_s"] * FLOP_PER_TEST / 1e12
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        scan_waypoints(asset, intr, poses, generator=gen(), outputs="unordered")
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    events.sort(key=lambda e: -e.self_device_time_total)
-    st["profiler_top_device_ms"] = [
-        [e.key[:70], round(e.self_device_time_total / 1e3, 3), e.count]
-        for e in events[:12]]
-    return st
 
 
 def main_room(device):
@@ -162,7 +196,8 @@ def main(argv=None) -> int:
            "waypoints": int(poses.shape[0])}
     for name, intr in (("blk2go", DualAxisLidarIntrinsics.create_blk2go_dual_axis()),
                        ("dense32", Indoor8LineLidarIntrinsics.create_dense_32line())):
-        out[name] = profile_profile(asset, intr, poses, device)
+        out[name] = {backend: profile_profile(asset, intr, poses, device, backend)
+                     for backend in ("pairs", "culled")}
     text = json.dumps(out, indent=1)
     print(text, flush=True)
     if args.out is not None:

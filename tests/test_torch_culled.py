@@ -246,8 +246,11 @@ def test_unknown_config_backend_raises():
 
 def test_default_config_gives_pairs():
     assert port_sim.load_default_config()["simulation"]["backend"] == "auto"
-    assert port_sim.create_simulator_from_config(device="cpu").backend == "pairs"
-    assert port_sim.S3DISSimulator({}, device="cpu").backend == "pairs"
+    # "auto" is the culled kernel (the JAX package's "xla" off the TPU).
+    assert port_sim.create_simulator_from_config(device="cpu").backend == "culled"
+    assert port_sim.S3DISSimulator({}, device="cpu").backend == "culled"
+    assert port_sim.S3DISSimulator({"raycast_engine": {"backend": "mxu"}},
+                                   device="cpu").backend == "pairs"
 
 
 def test_yaml_pallas_config_reaches_the_culled_path(tmp_path, monkeypatch):
