@@ -35,14 +35,15 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    on the card (hit masks agree >= 99 %, same triangle >= 99 %, hit-point
    error p99 <= 5 mm and max <= 5 cm), half of them from tiles that JAX's
    caps on its candidate lists overflow (the rays that took its walk-all
-   fallback).  A ray over the 5 cm bound passes
-   only if float64 on the original mesh shows it within the float32
-   rounding bound of the kernel's edge test (``graze_bound``) of an edge of
-   the nearer triangle, and such grazes stay under 0.1 % of the rays.  The
-   prepass kernel and the pair kernel are also held against their plain
-   versions on those same inputs of each run, and the ray-triangle tests the
-   pair kernel runs must equal those of the exact lists: no subtile walks
-   every block.
+   fallback).  A ray over the 5 cm bound, or hit on one side only, passes
+   only where float64 Moller-Trumbore (closed) on the asset's own v0, e1,
+   e2 of the two triangles sides with the pair kernel (``f64_sides_with``),
+   and such rays stay under 0.1 % of the rays.  The prepass kernel and the
+   pair kernel are also held against their plain versions on those same
+   inputs of each run (the walk's counting launch gives the same bits and
+   the share of its tests that float64 decided), and the ray-triangle
+   tests the pair kernel runs must equal those of the exact lists: no
+   subtile walks every block.
 5. culled kernel against its plain version and the block-scan oracle, bit
    for bit in t and slot: 256 k dense-32 rays in beam order (as the culled
    scan casts them) on the 159,744-triangle room, the 8,192-ray cluttered
@@ -79,8 +80,13 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    relative; floor modes: equal bits), recip within 1e-6 of full, and the
    result modes and ``flat``
    against the pair kernel on every ray (bf16: 99.9 % and t within the
-   raycast contract's 5 mm, its split's rounding).  Runs after phase 5, on
-   the same room.
+   raycast contract's 5 mm, its split's rounding).  The probe keeps the JAX
+   walk's open edge test in float32, so a ray whose slots differ counts as
+   agreeing where one of the two triangles has a side within the pair
+   walk's float32 band (``in_pair_band``) and float64 sides with the pair
+   kernel, at most 0.1 % of the rays; besides, the raw share on the same
+   slot must be >= 99.9 % and every ray hit by one and not the other must
+   be so settled.  Runs after phase 5, on the same room.
 8. raycast occupancy (``trajectory.occupancy_mode: raycast``):
    ``obstacle_mask`` on the planning grid of the main room through the pair
    kernel must equal the brute oracle's mask on >= 99.9 % of cells.  Runs
@@ -155,8 +161,8 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    and against the brute oracle (``pair_shards_vs_oracle``: the ten tiles
    ``check_own_rays`` draws plus every ray whose shard hit is over 5 cm
    from the unsharded run's or on one side only; a ray over 5 cm from the
-   oracle must be a float64-proven graze with the centre of the shard that
-   holds the nearer triangle, at most 0.1 %);
+   oracle or hit on one side only passes where float64 sides with the
+   shards (``f64_sides_with``), at most 0.1 %);
    ``run_scenes_device_parallel`` on [cuda:0, cuda:0] over phase 9's two
    rooms, their clouds equal byte for byte to the sequential ``main``'s;
    ``sharded_grid_nn`` of scan points into the TLS cloud equal to the
@@ -170,7 +176,11 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    kernels' hit masks agree >= 99 % and hit points p99 <= 5 mm where they
    cast the same rays, the recon mesh has faces, the CPU baseline ran; on
    20,480 sampled open-scene rays the culled kernel's misses equal the
-   brute oracle's and the pair kernel's agree on >= 99.9 %.
+   brute oracle's, and each ray where the pair kernel's differ is one where
+   float64 sides with the pair kernel; so is each of the open scene's
+   2.56 M rays and of the 2.56 M incoherent rays whose pair hit is over
+   5 cm from the culled kernel's or on one side only, and off the oracle's
+   triangle (``pairs_vs_culled_adjudicated``).
 19. the label-transfer probe (``phase_label_probe``): 2.56 M queries x
    630 k references, every piece of the grid 1-NN and of ``LabelGrid``
    timed; the instrumented 1-NN equal to the library call on every row, its
@@ -352,8 +362,7 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_vs_plain(p: dict, label: str, kernel_reps: int = 5,
-                    plain_reps: int = 1) -> dict:
+def kernel_vs_plain(p: dict, label: str, kernel_reps: int = 5) -> dict:
     """Run the kernel and the plain version on the same inputs; check the
     stated tolerance and time both."""
     import torch
@@ -361,27 +370,33 @@ def kernel_vs_plain(p: dict, label: str, kernel_reps: int = 5,
     from ipcgen_tpu_torch.ops import _kernels
     from ipcgen_tpu_torch.ops.raycast_pairs import raycast_pairs_plain
 
-    args = (p["f"], p["trif"], p["offsets"], p["blocks"], p["t_init"], p["sub"])
-    t_k, s_k = _kernels.raycast_pairs_cuda(*args)
-    t_p, s_p = raycast_pairs_plain(*args)
-    torch.cuda.synchronize()
+    t_k, s_k = _kernels.raycast_pairs_cuda(p)
+    n_f64 = torch.zeros(1, dtype=torch.int64, device=p["f"].device)
+    t_c, s_c = _kernels.raycast_pairs_cuda(p, f64_count=n_f64)
+    # The plain version takes seconds: its one checked call is also timed.
+    (t_p, s_p), plain_ms = timed_once(lambda: raycast_pairs_plain(p))
+    counted_same = bool(torch.equal(t_c, t_k) and torch.equal(s_c, s_k))
+    tests = int(p["blocks"].numel()) * p["sub"] * (p["trif"].shape[2] // 5)
+    f64_tests = int(n_f64)
     same = (s_k == s_p)
     same_frac = float(same.float().mean())
     hit = same & (s_k >= 0)
     rel = ((t_k - t_p).abs() / t_p.abs().clamp(min=1e-12))[hit]
     max_rel = float(rel.max()) if rel.numel() else 0.0
     max_abs = float((t_k - t_p).abs()[hit].max()) if hit.any() else 0.0
-    ms = time_ms(lambda: _kernels.raycast_pairs_cuda(*args), kernel_reps)
-    plain_ms = time_ms(lambda: raycast_pairs_plain(*args), plain_reps)
+    ms = time_ms(lambda: _kernels.raycast_pairs_cuda(p), kernel_reps)
     n_rays = p["f"].shape[0]
     log(f"[kernel] {label}: rays {n_rays} subtiles {p['offsets'].numel() - 1} "
         f"pairs {p['blocks'].numel()} | same slot "
         f"{same_frac:.6f} max rel t err {max_rel:.3e} | kernel {ms:.3f} ms "
-        f"plain {plain_ms:.3f} ms")
+        f"plain {plain_ms:.3f} ms | float64 edge decisions {f64_tests} of {tests} "
+        f"tests ({f64_tests / max(tests, 1):.3e})")
     require(same_frac >= 0.9999, f"{label}: same slot on {same_frac:.6f} < 0.9999")
     require(max_rel <= 1e-5, f"{label}: t rel err {max_rel:.3e} > 1e-5")
+    require(counted_same, f"{label}: the counting launch differs from the walk")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
-                same_slot=same_frac, rays=n_rays)
+                same_slot=same_frac, rays=n_rays, f64_tests=f64_tests, walk_tests=tests,
+                f64_share=f64_tests / max(tests, 1))
 
 
 def prepass_vs_plain(p: dict, asset, label: str, kernel_reps: int = 5) -> dict:
@@ -483,7 +498,7 @@ def phase_kernel_check(device, asset) -> dict:
     di = di / di.norm(dim=1, keepdim=True)
     p = prepare_pairs(oi, di, *comps, t_max=MAX_RANGE, sort_rays=True)
     prepass["incoherent_256k"] = prepass_vs_plain(p, asset, "incoherent 256k (sorted)")
-    out["incoherent_256k"] = kernel_vs_plain(p, "incoherent 256k (sorted)", plain_reps=1)
+    out["incoherent_256k"] = kernel_vs_plain(p, "incoherent 256k (sorted)")
     p = prepare_pairs(o[:8192], d[:8192], *comps, t_max=MAX_RANGE)
     # Every subtile walks every block: expand_walk_all lists them all.
     p["offsets"], p["blocks"] = expand_walk_all(
@@ -492,8 +507,7 @@ def phase_kernel_check(device, asset) -> dict:
         asset.num_blocks)
     require(p["blocks"].numel() == (p["offsets"].numel() - 1) * asset.num_blocks,
             "the forced walk-all list does not list every block")
-    out["walk_all_8k"] = kernel_vs_plain(p, "forced walk-all 8k",
-                                         kernel_reps=2, plain_reps=1)
+    out["walk_all_8k"] = kernel_vs_plain(p, "forced walk-all 8k", kernel_reps=2)
     return out, prepass
 
 
@@ -591,6 +605,34 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
+# The probe against the pair kernel, beside probe_tolerance's limits (which
+# hold once the rays float64 settles for the pair kernel count as agreeing):
+# the least raw share of rays on the same slot.
+PROBE_RAW_SAME_SLOT = 0.999
+
+
+def in_pair_band(p: dict, rays, slots):
+    """(n,) bool: has the pair walk's float32 test of rows ``rays`` of ``p``
+    (``prepare_pairs``' dict) against packed ``slots`` (-1: no triangle,
+    False) a side within ``side_band`` of 0 on den's side, so that float64
+    decides it?  The five products are summed here in another order than
+    the walk's, which moves them by far less than the band."""
+    import torch
+
+    from ipcgen_tpu_torch.ops.raycast_pairs import ray_band_terms, side_band
+
+    tb = p["trif"].shape[2] // 5
+    s = slots.clamp(min=0).long()
+    b = s // tb
+    cols = (s % tb)[:, None] + tb * torch.arange(5, device=s.device)  # (n, 5)
+    f = p["f"][rays]
+    g = torch.einsum("nk,njk->nj", f, p["trif"][b[:, None], :, cols])  # (n, 5)
+    sign = torch.where(torch.signbit(g[:, 4]), -1.0, 1.0)[:, None]
+    lo = (g[:, 0:3] * sign).amin(dim=1)
+    band = side_band(p["radius"][b], *ray_band_terms(f))
+    return (slots >= 0) & (lo >= -band) & (lo <= band)
+
+
 def probe_tolerance(name: str, against: str):
     """The limits a probe result must meet ({"same_slot": least share,
     "max_rel" or "max_abs": largest t error where the slots agree}), or None
@@ -626,7 +668,7 @@ def phase_probe(device, asset) -> dict:
     from ipcgen_tpu_torch import kernel_probe
     from ipcgen_tpu_torch.ops import _kernels
     from ipcgen_tpu_torch.ops import raycast_probe as rp
-    from ipcgen_tpu_torch.ops.raycast_pairs import raycast_pairs_components
+    from ipcgen_tpu_torch.ops.raycast_pairs import intersect_pairs, prepare_pairs
 
     names = list(rp.MODES) + ["grid32", "flat"]
     for k in _kernels.LAUNCHES:
@@ -685,13 +727,53 @@ def phase_probe(device, asset) -> dict:
     check_agreement("probe flat vs plain", got, probe_tolerance("flat", "plain"))
     checks["flat"] = dict(got, plain_ms=plain_ms)
 
-    # The result modes and flat against the pair kernel, on every ray.
-    comps = (asset.tri_data, asset.block_lo, asset.block_hi)
-    t_ref, s_ref = raycast_pairs_components(run["origins"], run["dirs"], *comps,
-                                            t_max=base["t_init"], sort_rays=False)
+    # The result modes and flat against the pair kernel, on every ray, as
+    # raycast_pairs_components casts them unsorted.
+    p = prepare_pairs(run["origins"], run["dirs"], asset.tri_data, asset.block_lo,
+                      asset.block_hi, t_max=base["t_init"])
+    t_ref, s_ref = (x[:p["n"]] for x in intersect_pairs(p))
+    # The probe keeps the JAX walk's open edge test in float32; the pair
+    # kernel's is closed, and float64 decides within the float32 band.  A ray
+    # where their slots differ is settled for the pair kernel only where one
+    # of the two triangles has a side within the band (the pair kernel's
+    # float64 took that decision) and float64 sides with the pair kernel.
+    # The raw share and the settled count are held too, and every ray hit by
+    # one and not the other must be settled, so a probe that drops hits
+    # cannot pass.
+    index = asset.tri_index
+    ids_ref = torch.where(s_ref >= 0, index[s_ref.clamp(min=0).long()], -1)
     for name in rp.RESULT_MODES + ("flat",):
-        got = rp.agreement(*results[name]["out"], t_ref, s_ref)
-        check_agreement(f"probe {name} vs the pair kernel", got, probe_tolerance(name, "pairs"))
+        t_q, s_q = results[name]["out"]
+        got = rp.agreement(t_q, s_q, t_ref, s_ref)
+        n = s_q.numel()
+        differ = torch.nonzero(s_q != s_ref).flatten()
+        band = (in_pair_band(p, differ, s_ref[differ])
+                | in_pair_band(p, differ, s_q[differ])).cpu().numpy()
+        ids_q = torch.where(s_q >= 0, index[s_q.clamp(min=0).long()], -1)
+        sides = f64_sides_with(run["origins"][differ].cpu().numpy(),
+                               run["dirs"][differ].cpu().numpy(), asset,
+                               ids_ref[differ].cpu().numpy(), ids_q[differ].cpu().numpy(),
+                               base["t_init"])
+        settled = band & sides
+        hit_q, hit_ref = (s_q[differ] >= 0).cpu().numpy(), (s_ref[differ] >= 0).cpu().numpy()
+        got.update(same_slot_raw=got["same_slot"], slots_differ=int(differ.numel()),
+                   in_band=int(band.sum()), f64_sides_with_pair_kernel=int(sides.sum()),
+                   settled=int(settled.sum()),
+                   same_slot=(n - differ.numel() + int(settled.sum())) / n,
+                   hit_share_diff=float((s_q >= 0).float().mean()
+                                        - (s_ref >= 0).float().mean()),
+                   probe_miss_pair_hit=int((~hit_q & hit_ref).sum()),
+                   pair_miss_probe_hit=int((hit_q & ~hit_ref).sum()),
+                   hit_differ_unsettled=int(((hit_q != hit_ref) & ~settled).sum()))
+        label = f"probe {name} vs the pair kernel"
+        check_agreement(label, got, probe_tolerance(name, "pairs"))
+        require(got["same_slot_raw"] >= PROBE_RAW_SAME_SLOT,
+                f"{label}: raw same slot {got['same_slot_raw']} < {PROBE_RAW_SAME_SLOT}")
+        require(got["settled"] <= MAX_GRAZE_FRAC * n,
+                f"{label}: {got['settled']} settled rays, over {MAX_GRAZE_FRAC} of {n}")
+        require(got["hit_differ_unsettled"] == 0,
+                f"{label}: a ray hit by one and not the other that float64 does not "
+                f"settle for the pair kernel: {got}")
         checks[name]["vs_pair_kernel"] = got
     for name, c in checks.items():
         log(f"[probe] {name}: {json.dumps(c)}")
@@ -740,40 +822,49 @@ def check_labels(ply_path: Path, data_root: Path, n_sample: int = 100_000,
     return float(agree.mean())
 
 
-GRAZE_ROUNDOFFS = 4  # unit roundoffs of the edge test's terms
-MAX_GRAZE_FRAC = 1e-3
+MAX_GRAZE_FRAC = 1e-3  # rays a check may adjudicate, of the rays it holds
 
 
-def graze_bound(o, d, tri, center):
-    """Float64 clearance of each ray from the nearest edge line of its
-    triangle, and the float32 rounding bound of the kernel's edge test there.
+def tri_rows(asset, tri_ids: np.ndarray) -> np.ndarray:
+    """(n, 9) float64 v0, e1, e2 of the asset's own float32 ``tri_data``
+    for original triangle ids (-1: zeros)."""
+    from ipcgen_tpu_torch.ops.reference_f64 import asset_rows
 
-    o, d (n, 3) rays; tri (n, 3, 3) triangle vertices; center (3,) the point
-    the kernel's Pluecker panels and ray features are centred on.  The edge
-    test for p -> q is d.(p x q) + (q - p).(o x d) in centred float32
-    coordinates: its rounding error is a few unit roundoffs of
-    |p||q| + (|p| + |q|)|o x d| (the cross products and the rounded vertices
-    and edge), and dividing by |d x (q - p)| turns a side value into the
-    distance between the ray and the edge line.
-    """
-    eps = float(np.finfo(np.float32).eps)
-    o = np.asarray(o, np.float64) - center
-    d = np.asarray(d, np.float64)
-    tri = np.asarray(tri, np.float64) - center
-    m = np.cross(o, d)
-    clear = np.full(len(o), np.inf)
-    bound = np.zeros(len(o))
-    for i, j in ((0, 1), (1, 2), (2, 0)):
-        p, q = tri[:, i], tri[:, j]
-        scale = np.linalg.norm(np.cross(d, q - p), axis=1)
-        side = np.einsum("ij,ij->i", d, np.cross(p, q)) + np.einsum("ij,ij->i", q - p, m)
-        dist = np.abs(side) / np.maximum(scale, 1e-300)
-        pn, qn = np.linalg.norm(p, axis=1), np.linalg.norm(q, axis=1)
-        err = GRAZE_ROUNDOFFS * eps * (pn * qn + (pn + qn) * np.linalg.norm(m, axis=1))
-        nearest = dist < clear
-        clear = np.where(nearest, dist, clear)
-        bound = np.where(nearest, err / np.maximum(scale, 1e-300), bound)
-    return clear, bound
+    rows, index = asset_rows(asset.tri_data, asset.tri_index)
+    slot_of = np.full(max(int(index.max()) + 1, 1), -1)
+    slot_of[index[index >= 0]] = np.flatnonzero(index >= 0)
+    out = np.zeros((len(tri_ids), 9))
+    ok = tri_ids >= 0
+    out[ok] = rows[slot_of[tri_ids[ok]]]
+    return out
+
+
+def f64_sides_with(o, d, asset, tri_k: np.ndarray, tri_o: np.ndarray, t_max: float):
+    """For rays where the pair kernel's triangle ``tri_k`` and the oracle's
+    ``tri_o`` (original ids, -1 a miss) disagree: does float64
+    Moller-Trumbore (closed) on the asset's own v0, e1, e2 side with the
+    kernel?  It does when the kernel's triangle is hit and the oracle's is
+    not nearer (the oracle erred inside its float32 band, or the two tie on
+    a shared edge), or the kernel missed and the oracle's triangle is not
+    hit.  Where a barycentric lies within EXACT_MARGIN of 0, or the two t
+    within EXACT_MARGIN relative, rational arithmetic decides that ray
+    (``closed_exact``): float64 Moller-Trumbore is not watertight on an
+    edge.  Both references are ``ops/reference_f64.py``'s.  (n,) bool."""
+    from ipcgen_tpu_torch.ops.reference_f64 import EXACT_MARGIN, closed_exact, closed_mt64
+
+    rows_k, rows_o = tri_rows(asset, tri_k), tri_rows(asset, tri_o)
+    hk, tk, nk = closed_mt64(o, d, rows_k, t_max)
+    ho, to, no = closed_mt64(o, d, rows_o, t_max)
+    hk &= tri_k >= 0
+    ho &= tri_o >= 0
+    out = np.where(tri_k >= 0, hk & (~ho | (tk <= to)), ~ho)
+    with np.errstate(invalid="ignore"):
+        tie = hk & ho & (np.abs(tk - to) <= EXACT_MARGIN * np.maximum(tk, to))
+    for i in np.flatnonzero(((nk & (tri_k >= 0)) | (no & (tri_o >= 0)) | tie)):
+        ek, ok_t = closed_exact(o[i], d[i], rows_k[i], t_max) if tri_k[i] >= 0 else (False, None)
+        eo, oo_t = closed_exact(o[i], d[i], rows_o[i], t_max) if tri_o[i] >= 0 else (False, None)
+        out[i] = (ek and (not eo or ok_t <= oo_t)) if tri_k[i] >= 0 else not eo
+    return out
 
 
 def contract_tiles(p: dict, n_rays: int, n_tiles: int, device):
@@ -794,17 +885,18 @@ def contract_tiles(p: dict, n_rays: int, n_tiles: int, device):
     return idx, tiles, k_ovf, over_cap
 
 
-def check_own_rays(asset, intr, sc, tri_xyz, seed: int, device, n_tiles: int = 10):
+def check_own_rays(asset, intr, sc, seed: int, device, n_tiles: int = 10):
     """Rebuild the run's rays and cast them as the scan does; check that this
     gives back the run's frames, then hold ``n_tiles`` whole tiles of it to
     the raycast contract against the brute oracle, half of them from tiles
-    that JAX's caps overflow.  ``tri_xyz`` (n, 3, 3) holds the mesh's
-    triangles by original id.  Returns the contract figures and the pair
+    that JAX's caps overflow; each ray over 5 cm from the oracle or hit on
+    one side only must be one where float64 sides with the pair kernel
+    (``f64_sides_with``).  Returns the contract figures and the pair
     kernel's inputs for those rays."""
     import torch
 
     from ipcgen_tpu_torch.ops.raycast import raycast_asset
-    from ipcgen_tpu_torch.ops.raycast_pairs import _nanmax, _nanmin, prepare_pairs
+    from ipcgen_tpu_torch.ops.raycast_pairs import prepare_pairs
     from ipcgen_tpu_torch.sim.scan import scan_rays
 
     max_range = float(intr.max_range)
@@ -837,17 +929,17 @@ def check_own_rays(asset, intr, sc, tri_xyz, seed: int, device, n_tiles: int = 1
     same = both & (tk == to)
     pk, po = rk.points[idx].cpu().numpy(), ro.points.cpu().numpy()
     pe = np.linalg.norm(pk[both] - po[both], axis=1)
-    # Rays over the 5 cm bound: is each a graze of the nearer triangle's edge?
-    over = np.flatnonzero(both)[pe > 0.05]
-    nearer = np.where(rk.t[idx].cpu().numpy()[over] < ro.t.cpu().numpy()[over],
-                      tk[over], to[over])
-    center = ((_nanmin(asset.block_lo, 0) + _nanmax(asset.block_hi, 0)) * 0.5).cpu().numpy()
+    # Rays over the 5 cm bound or hit on one side only: float64 adjudicates.
+    differ = np.flatnonzero(hk != ho)
+    over = np.concatenate([np.flatnonzero(both)[pe > 0.05], differ])
     sel = idx.cpu().numpy()[over]
-    clear, bound = graze_bound(o[sel].cpu().numpy(), d[sel].cpu().numpy(),
-                               tri_xyz[nearer], center.astype(np.float64))
-    grazes = [dict(ray=int(r), err_mm=float(e * 1e3), clearance_um=float(c * 1e6),
-                   bound_um=float(b * 1e6))
-              for r, e, c, b in zip(sel, pe[pe > 0.05], clear, bound)]
+    sides = f64_sides_with(o[sel].cpu().numpy(), d[sel].cpu().numpy(), asset,
+                           np.where(hk[over], tk[over], -1), np.where(ho[over], to[over], -1),
+                           max_range)
+    adjudicated = [dict(ray=int(r), kernel_tri=int(a), oracle_tri=int(b),
+                        f64_sides_with_kernel=bool(w))
+                   for r, a, b, w in zip(sel, np.where(hk[over], tk[over], -1),
+                                         np.where(ho[over], to[over], -1), sides)]
     pe_rest = pe[pe <= 0.05]
     res = dict(config=f"unsorted, {tile}-ray tiles, group {p['group']}, gmax "
                       f"{p['gmax']}, vmax {p['vmax']}",
@@ -858,13 +950,16 @@ def check_own_rays(asset, intr, sc, tri_xyz, seed: int, device, n_tiles: int = 1
                same_tri=float(same.sum() / max(both.sum(), 1)),
                p99_mm=float(np.percentile(pe, 99) * 1e3) if len(pe) else 0.0,
                max_mm=float(pe.max() * 1e3) if len(pe) else 0.0,
-               max_mm_without_grazes=float(pe_rest.max() * 1e3) if len(pe_rest) else 0.0,
-               grazes=grazes)
+               max_mm_without_adjudicated=float(pe_rest.max() * 1e3) if len(pe_rest)
+               else 0.0,
+               over_5cm=int((pe > 0.05).sum()), hit_differ=int(len(differ)),
+               adjudicated=adjudicated)
     require(res["hit_agree"] >= 0.99, f"hit agreement {res}")
     require(res["same_tri"] >= 0.99, f"same triangle {res}")
     require(res["p99_mm"] <= 5.0, f"point error p99 {res}")
-    require(bool(np.all(clear <= bound)), f"a ray over 5 cm is not an edge graze: {res}")
-    require(len(over) <= MAX_GRAZE_FRAC * idx.numel(), f"too many edge grazes: {res}")
+    require(bool(np.all(sides)), f"a ray off the oracle where float64 does not side with "
+                                 f"the pair kernel: {res}")
+    require(len(over) <= MAX_GRAZE_FRAC * idx.numel(), f"too many rays off the oracle: {res}")
     return res, p
 
 
@@ -925,7 +1020,6 @@ def phase_main_path(device, work: Path, card: str):
     log(f"[main] room {len(t)} triangles, TLS {n_tls} points, written in "
         f"{time.time() - t0:.1f} s")
     asset = build_scene_asset(v, t, device=device)  # for the oracle check
-    tri_xyz = v[t]  # triangles by original id, for the graze bound
     runs = {}
     for profile in ("blk2go", "dense32"):
         for k in _kernels.LAUNCHES:
@@ -955,8 +1049,7 @@ def phase_main_path(device, work: Path, card: str):
         require(label_agree >= 0.999, f"{profile}: label agreement {label_agree}")
         stages = {k: round(float(v), 4) for k, v in sorted(sc.profile.items())}
         log(f"[main] {profile}: stage seconds on {card}: {json.dumps(stages)}")
-        contract, pairs = check_own_rays(asset, intr, sc, tri_xyz, seed=0,
-                                         device=device)
+        contract, pairs = check_own_rays(asset, intr, sc, seed=0, device=device)
         log(f"[main] {profile}: the run's rays cast again reproduce its frames; "
             f"raycast contract vs oracle {contract}")
         at_shape, prepass = pair_kernels_at_shape(asset, pairs, profile, rays, "main")
@@ -981,7 +1074,7 @@ def pair_kernels_at_shape(asset, pairs: dict, profile: str, rays: int, tag: str)
     prepass = prepass_vs_plain(pairs, asset, f"{profile} main-path inputs ({rays} rays)",
                                kernel_reps=3)
     at_shape = kernel_vs_plain(pairs, f"{profile} main-path inputs ({rays} rays)",
-                               kernel_reps=3, plain_reps=1)
+                               kernel_reps=3)
     # The work the pair kernel needs for these rays (the plain version's
     # exact lists) beside what it runs (the kernel prepass's lists).
     per_pair = pairs["sub"] * asset.tri_data.shape[2]
@@ -1646,7 +1739,7 @@ def phase_recon_sim(device, work: Path, card: str, tls_tree) -> dict:
             f"recon-sim: the scan is off the TLS cloud: {scan_tls}")
 
     asset = build_scene_asset(v, t, device=device)
-    contract, pairs = check_own_rays(asset, intr, sc, v[t], seed=0, device=device)
+    contract, pairs = check_own_rays(asset, intr, sc, seed=0, device=device)
     log(f"[recon-sim] the run's rays cast again reproduce its frames; raycast contract vs "
         f"oracle {contract}")
     at_shape, prepass = pair_kernels_at_shape(asset, pairs, "recon_dense32", rays,
@@ -1952,21 +2045,19 @@ def pairs_agreement(t_a, s_a, p_a, t_b, s_b, p_b) -> dict:
 
 
 def pair_shards_vs_oracle(o, d, t, slot, t1, s1, asset, asset_p, n_shards: int,
-                          tri_xyz, p: dict, max_range: float) -> dict:
+                          p: dict, max_range: float) -> dict:
     """The combined pair shards (t, slot over the padded ``asset_p``) held to
     the raycast contract against the brute oracle on the ten tiles that
     ``check_own_rays`` draws plus every candidate ray: a hit more than 5 cm
     from the unsharded pair run (t1, s1), or a hit on one side only.  A ray
-    over 5 cm from the oracle passes only as a float64-proven graze of the
-    nearer triangle's edge (``graze_bound``), with the centre of the shard
-    that holds that triangle, which is what its panels were centred on; at
-    most 0.1 % of the rays.  ``p``: ``prepare_pairs`` of the unsharded run
-    (its tiling and overflow flags)."""
+    over 5 cm from the oracle, or hit on one side only, passes only where
+    float64 sides with the shards (``f64_sides_with``, on the unsharded
+    asset's triangles: the float64 edge test has no centre, so no shard's
+    centre enters); at most 0.1 % of the rays.  ``p``: ``prepare_pairs`` of
+    the unsharded run (its tiling and overflow flags)."""
     import torch
 
     from ipcgen_tpu_torch.ops.raycast import finalize_result, raycast_brute_components
-    from ipcgen_tpu_torch.ops.raycast_pairs import _nanmax, _nanmin
-    from ipcgen_tpu_torch.parallel import shard
 
     shard_res = finalize_result(o, d, t, slot, asset_p)
     one_res = finalize_result(o, d, t1, s1, asset)
@@ -1983,42 +2074,32 @@ def pair_shards_vs_oracle(o, d, t, slot, t1, s1, asset, asset_p, n_shards: int,
     both = hk & ho
     pe = np.linalg.norm(shard_res.points[idx].cpu().numpy()[both]
                         - ro.points.cpu().numpy()[both], axis=1)
-    over = np.flatnonzero(both)[pe > 0.05]
-    # The nearer triangle: the shard's when its t is the smaller (it hit
-    # what the oracle misses), else the oracle's (the shard missed it).
-    kernel_nearer = t[idx].cpu().numpy()[over] < t_o.cpu().numpy()[over]
-    nearer_tri = np.where(kernel_nearer, tk[over], to[over])
-    nearer_slot = np.where(kernel_nearer, slot[idx].cpu().numpy()[over],
-                           s_o.cpu().numpy()[over])
-    per_shard = asset_p.num_blocks // n_shards * asset_p.block_size
-    centers = np.stack([
-        ((_nanmin(lo, 0) + _nanmax(hi, 0)) * 0.5).cpu().numpy().astype(np.float64)
-        for _, lo, hi, _, _ in (shard.block_shard(asset_p, n_shards, i)
-                                for i in range(n_shards))])
-    of_shard = nearer_slot // per_shard
+    differ = np.flatnonzero(hk != ho)
+    over = np.concatenate([np.flatnonzero(both)[pe > 0.05], differ])
     sel = idx.cpu().numpy()[over]
-    clear, bound = np.zeros(len(over)), np.zeros(len(over))
-    for i in np.unique(of_shard):
-        m = of_shard == i
-        clear[m], bound[m] = graze_bound(o[sel[m]].cpu().numpy(), d[sel[m]].cpu().numpy(),
-                                         tri_xyz[nearer_tri[m]], centers[i])
+    tri_k, tri_o = np.where(hk[over], tk[over], -1), np.where(ho[over], to[over], -1)
+    sides = f64_sides_with(o[sel].cpu().numpy(), d[sel].cpu().numpy(), asset, tri_k, tri_o,
+                           max_range)
     pe_rest = pe[pe <= 0.05]
     res = dict(sample_rays=int(sample.numel()), candidates=int(cand.numel()),
                rays=int(idx.numel()), hit_agree=float((hk == ho).mean()),
                same_tri=float((tk[both] == to[both]).mean()),
                p99_mm=float(np.percentile(pe, 99) * 1e3),
                max_mm=float(pe.max() * 1e3),
-               max_mm_without_grazes=float(pe_rest.max() * 1e3) if len(pe_rest) else 0.0,
-               grazes=[dict(ray=int(r), shard=int(s), err_mm=float(e * 1e3),
-                            clearance_um=float(c * 1e6), bound_um=float(b * 1e6))
-                       for r, s, e, c, b in zip(sel, of_shard, pe[pe > 0.05], clear, bound)])
+               max_mm_without_adjudicated=float(pe_rest.max() * 1e3) if len(pe_rest)
+               else 0.0,
+               over_5cm=int((pe > 0.05).sum()), hit_differ=int(len(differ)),
+               adjudicated=[dict(ray=int(r), kernel_tri=int(a), oracle_tri=int(b),
+                                 f64_sides_with_kernel=bool(w))
+                            for r, a, b, w in zip(sel, tri_k, tri_o, sides)])
     require(res["hit_agree"] >= 0.99, f"S={n_shards} pair shards vs oracle: hits {res}")
     require(res["same_tri"] >= 0.99, f"S={n_shards} pair shards vs oracle: triangles {res}")
     require(res["p99_mm"] <= 5.0, f"S={n_shards} pair shards vs oracle: p99 {res}")
-    require(bool(np.all(clear <= bound)),
-            f"S={n_shards} pair shards: a ray over 5 cm is not an edge graze: {res}")
+    require(bool(np.all(sides)),
+            f"S={n_shards} pair shards: a ray off the oracle where float64 does not side "
+            f"with the shards: {res}")
     require(len(over) <= MAX_GRAZE_FRAC * idx.numel(),
-            f"S={n_shards} pair shards: too many edge grazes: {res}")
+            f"S={n_shards} pair shards: too many rays off the oracle: {res}")
     return res
 
 
@@ -2100,7 +2181,6 @@ def phase_multidevice(device, work: Path, card: str) -> dict:
         # shards (outside every counted window).
         pairs_p = prepare_pairs(o, d, asset.tri_data, asset.block_lo, asset.block_hi,
                                 t_max=max_range)
-        tri_xyz = mesh_tri.vertices[mesh_tri.triangles]
         tri_shards = {}
         for n_shards in SHARDS:
             asset_p = shard.shard_asset_blocks(asset, n_shards)
@@ -2135,7 +2215,7 @@ def phase_multidevice(device, work: Path, card: str) -> dict:
                     require(shard_launches["raycast_pairs"] == n_shards,
                             f"S={n_shards} pair launches {shard_launches}")
                     res["oracle"] = pair_shards_vs_oracle(o, d, t, slot, t1, s1, asset,
-                                                          asset_p, n_shards, tri_xyz,
+                                                          asset_p, n_shards,
                                                           pairs_p, max_range)
                 res.update(rays=int(o.shape[0]), seconds=secs, launches=shard_launches)
                 tri_shards[f"{backend}_S{n_shards}"] = res
@@ -2203,6 +2283,42 @@ def phase_multidevice(device, work: Path, card: str) -> dict:
 # ---------------------------------------------------------------------------
 # The port's bench and the label-transfer probe
 # ---------------------------------------------------------------------------
+def pairs_vs_culled_adjudicated(o, d, asset, label: str, sort_rays="auto") -> dict:
+    """Cast rays o, d through the pair and the culled kernel (t_max 20 m, as
+    the bench); hold each ray whose pair hit is over 5 cm from the culled
+    kernel's, or hit on one side only, to the brute oracle: where the pair
+    kernel's triangle is not the oracle's, float64 must side with the pair
+    kernel (``f64_sides_with``).  Returns the figures, each such ray listed
+    with the triangle of each kernel and of the oracle."""
+    import torch
+
+    from ipcgen_tpu_torch.ops.raycast import raycast_asset
+
+    rp, rc = (raycast_asset(o, d, asset, backend=k, t_max=20.0, sort_rays=sort_rays)
+              for k in ("pairs", "culled"))
+    both = rp.hit & rc.hit
+    far = torch.zeros_like(both)
+    far[both] = (rp.points[both] - rc.points[both]).norm(dim=1) > 0.05
+    flagged = torch.nonzero(far | (rp.hit != rc.hit)).flatten()
+    ro = raycast_asset(o[flagged], d[flagged], asset, backend="brute", t_max=20.0)
+    off = torch.nonzero(rp.tri_id[flagged] != ro.tri_id).flatten()
+    sel = flagged[off]
+    sides = f64_sides_with(o[sel].cpu().numpy(), d[sel].cpu().numpy(), asset,
+                           rp.tri_id[sel].cpu().numpy(), ro.tri_id[off].cpu().numpy(), 20.0)
+    res = dict(rays=int(o.shape[0]), flagged=int(flagged.numel()), off_oracle=int(sel.numel()),
+               f64_sides_with_pairs=int(sides.sum()),
+               rays_off=[dict(ray=int(r), pairs_tri=int(a), culled_tri=int(c), oracle_tri=int(b),
+                              f64_sides_with_pairs=bool(w))
+                         for r, a, c, b, w in zip(sel.tolist(), rp.tri_id[sel].tolist(),
+                                                  rc.tri_id[sel].tolist(),
+                                                  ro.tri_id[off].tolist(), sides)])
+    log(f"[bench] {label} rays, pairs over 5 cm from culled or on one side only, vs the "
+        f"oracle: {res}")
+    require(bool(np.all(sides)), f"bench {label}: a pair ray off the oracle where float64 "
+                                 f"does not side with the pair kernel {res}")
+    return res
+
+
 BENCH_DIRECT = ("incoherent_random_rays", "incoherent_random_rays_sorted",
                 "open_scene_32line")
 OPEN_SCENE_SAMPLE = 20_480
@@ -2216,7 +2332,11 @@ def phase_bench(device, card: str) -> dict:
     where both kernels cast the same rays, hit masks agree >= 99 % and hit
     points p99 <= 5 mm; the recon mesh has faces; the CPU baseline ran.  On
     a sample of the open scene's rays the culled kernel's miss mask equals
-    the brute oracle's and the pair kernel's agrees on >= 99.9 %."""
+    the brute oracle's, and where the pair kernel's differs float64 sides
+    with the pair kernel (``f64_sides_with``); so it does on each ray of
+    the whole open-scene workload and of the incoherent rays whose pair hit
+    is over 5 cm from the culled kernel's, or on one side only, and off the
+    oracle's triangle (``pairs_vs_culled_adjudicated``)."""
     import torch
 
     from ipcgen_tpu_torch import bench
@@ -2262,20 +2382,40 @@ def phase_bench(device, card: str) -> dict:
     o, d = bench._open_scene_rays(128_000, 20)
     pick = np.sort(np.random.default_rng(5).choice(len(o), OPEN_SCENE_SAMPLE, replace=False))
     o, d = bench._as_rays(o[pick], d[pick], device)
-    miss = {k: ~raycast_asset(o, d, open_asset, backend=k, t_max=20.0, sort_rays=False).hit
-            for k in ("pairs", "culled", "brute")}
+    res = {k: raycast_asset(o, d, open_asset, backend=k, t_max=20.0, sort_rays=False)
+           for k in ("pairs", "culled", "brute")}
+    miss = {k: ~r.hit for k, r in res.items()}
+    differ = torch.nonzero(miss["pairs"] != miss["brute"]).flatten()
+    # Each ray the pair kernel and the oracle disagree on: float64 adjudicates.
+    sides = f64_sides_with(
+        o[differ].cpu().numpy(), d[differ].cpu().numpy(), open_asset,
+        res["pairs"].tri_id[differ].cpu().numpy(), res["brute"].tri_id[differ].cpu().numpy(),
+        20.0)
     open_check = dict(rays=OPEN_SCENE_SAMPLE, brute_miss=float(miss["brute"].float().mean()),
                       **{f"{k}_miss_agree": float((miss[k] == miss["brute"]).float().mean())
                          for k in bench.KERNELS},
-                      pairs_miss_differ=int((miss["pairs"] != miss["brute"]).sum()))
+                      pairs_miss_differ=int(differ.numel()),
+                      pairs_miss_differ_f64_sides_with_pairs=int(sides.sum()))
     log(f"[bench] open scene, {OPEN_SCENE_SAMPLE} sampled rays vs the oracle: {open_check}")
     require(open_check["brute_miss"] > 0, f"bench open scene: no miss {open_check}")
     require(torch.equal(miss["culled"], miss["brute"]),
             f"bench open scene: culled misses differ from the oracle's {open_check}")
-    require(open_check["pairs_miss_agree"] >= 0.999,
-            f"bench open scene: pair misses off the oracle's {open_check}")
+    require(bool(np.all(sides)),
+            f"bench open scene: a pair miss differs from the oracle's where float64 does not "
+            f"side with the pair kernel {open_check}")
+
+    # The open scene's and the incoherent rays, all of them: each ray whose
+    # pair hit is over 5 cm from the culled kernel's or on one side only,
+    # held to the oracle.
+    o, d = bench._as_rays(*bench._open_scene_rays(128_000, 20), device)
+    open_full = pairs_vs_culled_adjudicated(o, d, open_asset, "open scene", sort_rays=False)
+    asset = build_scene_asset(verts, tris, device=device)
+    o, d = bench._as_rays(*bench._incoherent_rays(bench.Sizes().incoherent_rays), device)
+    incoherent_check = pairs_vs_culled_adjudicated(o, d, asset, "incoherent")
     return dict(seconds=seconds, line_chars=len(line), compact=compact,
-                agreement=agreement, open_scene=open_check, launches=by_path,
+                agreement=agreement, open_scene=open_check, open_scene_all=open_full,
+                incoherent=incoherent_check,
+                launches=by_path,
                 pair_lists={name: out["details"]["workloads"][name]["pair_lists"]
                             for name in BENCH_DIRECT})
 
@@ -2432,7 +2572,8 @@ def main() -> int:
             k: {"rays": r["kernel"]["rays"], "ms": r["kernel"]["ms"],
                 "plain_ms": r["kernel"]["plain_ms"], "bound_ms": r["kernel"]["bound_ms"],
                 "tests_run": r["kernel"]["tests_run"],
-                "exact_list_tests": r["kernel"]["exact_list_tests"]}
+                "exact_list_tests": r["kernel"]["exact_list_tests"],
+                "f64_tests": r["kernel"]["f64_tests"], "f64_share": r["kernel"]["f64_share"]}
             for k, r in runs.items()},
         "occupancy": occupancy,
     }, {

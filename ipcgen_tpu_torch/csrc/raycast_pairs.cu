@@ -134,13 +134,26 @@
 // device memory.  wgmma, TMA and persistent blocks are later work.
 //
 // Semantics kept from the Pallas kernels:
-//  - one watertight sign test over the three edge sides and t_num/t_den
-//    (shared edges are exactly negated in the neighbouring triangle);
-//  - t > 1e-6 as |num| > 1e-6 * |den|, plus |den| > 1e-9; padded triangles
-//    (n = 0, so 0/0) fail both and never win;
+//  - t > 1e-6 as |num| > 1e-6 * |den|, plus |den| > 1e-9 and num of den's
+//    sign; padded triangles (n = 0, so 0/0) fail and never win;
 //  - the running best starts at (t_init, -1), t_init = t_max (1e30 when the
 //    range is unbounded), and a hit must be strictly nearer;
 //  - ties in t go to the smallest packed slot block * TB + lane.
+// The edge test (ops/raycast_pairs.py, "The edge test", derives the band):
+// closed triangles, a side of 0 is inside.  The float32 sides are computed
+// about the scene centre and are trusted only beyond the band
+// R (R kd + km) of the (ray, block), R = radius[b] (block_radius) and kd,
+// km from the ray's features (ray_band_terms): a triangle with a side beyond
+// it on the wrong side of den is rejected, one with all three beyond it on
+// den's side is hit.  Otherwise, and only when its t would replace the
+// running best, inside_f64 decides in float64 from the raw inputs (the ray's
+// o and d, tri_data rows 0-8, read from global memory on this rare path, not
+// from the panels) about the ray's origin, with no scene centre, each
+// product and sum rounded on its own in the plain version's order
+// (sides_f64), so a shared edge's two sides are exact negatives and the
+// kernel's float64 sides equal the plain version's.
+// The float64 path diverges within a warp, and H100 runs float64 at half the
+// float32 rate; it is rare, and the counting launch (f64_count) says how rare.
 // Build without --use_fast_math: the divides and the comparisons must be IEEE.
 
 #include <cuda_runtime.h>
@@ -165,6 +178,13 @@ constexpr int kChunkBlocks = 8192;   // most leaf blocks per prepass chunk
 constexpr int kStage = 512;          // block boxes staged in shared memory at once
 constexpr float kBig = 3.0e38f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
+// The band's constants: u = 2^-24 times BAND_D, BAND_M, BAND_OD of
+// ops/raycast_pairs.py (exact in float32), and _RADIUS_SLACK.
+constexpr float kBandU = 5.9604644775390625e-8f;
+constexpr float kBandD = 33.0f * kBandU;
+constexpr float kBandM = 27.0f * kBandU;
+constexpr float kBandOD = 37.0f * kBandU;
+constexpr float kRadiusSlack = 1.0f + 9.5367431640625e-7f;
 
 // ---------------------------------------------------------------------------
 // The prepass
@@ -620,10 +640,59 @@ __device__ __forceinline__ float dot6(const float* x, const float* c) {
   return a;
 }
 
-// One panel (block b) against the thread's rays.
-__device__ __forceinline__ void walk_panel(const float* pn, int b, int tb,
+// The three float64 sides of ray r against triangle (b, k) about the ray's
+// origin, d.((p - o) x (q - o)) (sides_f64 in ops/raycast_pairs.py,
+// operation for operation): is each 0 or of den's sign?
+__device__ __noinline__ bool inside_f64(const float* __restrict__ origins,
+                                        const float* __restrict__ dirs,
+                                        const float* __restrict__ tri_data, size_t r, int b,
+                                        int k, int tb, bool den_pos) {
+  const double o[3] = {origins[3 * r], origins[3 * r + 1], origins[3 * r + 2]};
+  const double d[3] = {dirs[3 * r], dirs[3 * r + 1], dirs[3 * r + 2]};
+  const float* tp = tri_data + (size_t)b * 16 * tb + k;
+  double v[3][3];  // v0 - o, (v0 + e1) - o, (v0 + e2) - o
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const double v0 = tp[a * tb];
+    v[0][a] = __dsub_rn(v0, o[a]);
+    v[1][a] = __dsub_rn(__dadd_rn(v0, (double)tp[(3 + a) * tb]), o[a]);
+    v[2][a] = __dsub_rn(__dadd_rn(v0, (double)tp[(6 + a) * tb]), o[a]);
+  }
+  bool inside = true;
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const double* p = v[e];
+    const double* q = v[(e + 1) % 3];
+    const double cx = __dsub_rn(__dmul_rn(p[1], q[2]), __dmul_rn(p[2], q[1]));
+    const double cy = __dsub_rn(__dmul_rn(p[2], q[0]), __dmul_rn(p[0], q[2]));
+    const double cz = __dsub_rn(__dmul_rn(p[0], q[1]), __dmul_rn(p[1], q[0]));
+    const double side =
+        __dadd_rn(__dadd_rn(__dmul_rn(d[0], cx), __dmul_rn(d[1], cy)), __dmul_rn(d[2], cz));
+    inside &= side == 0.0 || (den_pos ? side > 0.0 : side < 0.0);
+  }
+  return inside;
+}
+
+// The raw inputs of the float64 path, and its count (null but on the
+// counting launch).
+struct RawInputs {
+  const float* origins;   // (S*256, 3)
+  const float* dirs;      // (S*256, 3)
+  const float* tri_data;  // (NB, 16, TB)
+  unsigned long long* f64_count;
+};
+
+// One panel (block b) against the thread's rays (rays of subtile s).
+__device__ __forceinline__ void walk_panel(const float* pn, int b, int tb, float radius,
                                            const float (&x)[kRays][9],
-                                           float (&bt)[kRays], int (&bs)[kRays]) {
+                                           const float (&kd)[kRays], const float (&km)[kRays],
+                                           float (&bt)[kRays], int (&bs)[kRays],
+                                           const RawInputs& raw, int s, unsigned& n_f64) {
+  float band[kRays];
+#pragma unroll
+  for (int i = 0; i < kRays; ++i) {
+    band[i] = __fmul_rn(radius, __fadd_rn(__fmul_rn(radius, kd[i]), km[i]));
+  }
 #pragma unroll 2
   for (int k = 0; k < tb; ++k) {
     float c[kCoef];
@@ -641,28 +710,48 @@ __device__ __forceinline__ void walk_panel(const float* pn, int b, int tb,
           c[21]);
       const float den = __fmaf_rn(x[i][2], c[24],
                                   __fmaf_rn(x[i][1], c[23], __fmul_rn(x[i][0], c[22])));
-      const int i0 = __float_as_int(s0), i1 = __float_as_int(s1);
-      const int i2 = __float_as_int(s2);
-      const int inum = __float_as_int(num), iden = __float_as_int(den);
-      // All five sign bits equal: inside the triangle and t >= 0.
-      if (((i0 ^ i1) | (i0 ^ i2) | (inum ^ iden)) < 0) continue;
+      // The sides as seen from den's side (inside >= 0); fminf as torch.fmin.
+      const unsigned flip = __float_as_uint(den) & 0x80000000u;
+      const float lo = fminf(fminf(__uint_as_float(__float_as_uint(s0) ^ flip),
+                                   __uint_as_float(__float_as_uint(s1) ^ flip)),
+                             __uint_as_float(__float_as_uint(s2) ^ flip));
+      if (lo < -band[i]) continue;  // a side surely outside
+      if ((__float_as_int(num) ^ __float_as_int(den)) < 0) continue;  // t < 0
       const float an = fabsf(num), ad = fabsf(den);
       if (!(an > 1e-6f * ad) || !(ad > 1e-9f)) continue;
       const float t = __fdiv_rn(an, ad);
-      if (t < bt[i] || (t == bt[i] && slot < bs[i])) {
-        bt[i] = t;
-        bs[i] = slot;
+      if (!(t < bt[i] || (t == bt[i] && slot < bs[i]))) continue;
+      if (!(lo > band[i])) {  // a side within the band: float64 decides
+        ++n_f64;
+        const size_t r = (size_t)s * kSub + threadIdx.x + i * kWalkThreads;
+        if (!inside_f64(raw.origins, raw.dirs, raw.tri_data, r, b, k, tb, den > 0.0f)) {
+          continue;
+        }
       }
+      bt[i] = t;
+      bs[i] = slot;
     }
   }
 }
 
-__device__ __forceinline__ void load_rays(const float* f, int s, float (&x)[kRays][9]) {
+// The rays of subtile s and their band terms (ray_band_terms, operation for
+// operation).
+__device__ __forceinline__ void load_rays(const float* f, int s, float (&x)[kRays][9],
+                                          float (&kd)[kRays], float (&km)[kRays]) {
 #pragma unroll
   for (int i = 0; i < kRays; ++i) {
     const float* fr = f + ((size_t)s * kSub + threadIdx.x + i * kWalkThreads) * kFeat;
 #pragma unroll
     for (int j = 0; j < 9; ++j) x[i][j] = fr[j];
+    float a[9];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) a[j] = fabsf(x[i][j]);
+    const float d1 = __fadd_rn(__fadd_rn(a[0], a[1]), a[2]);
+    const float d_inf = fmaxf(fmaxf(a[0], a[1]), a[2]);
+    const float m1 = __fadd_rn(__fadd_rn(a[3], a[4]), a[5]);
+    const float rho = __fmul_rn(fmaxf(fmaxf(a[6], a[7]), a[8]), kRadiusSlack);
+    kd[i] = __fmul_rn(d1, kBandD);
+    km[i] = __fadd_rn(__fmul_rn(m1, kBandM), __fmul_rn(__fmul_rn(rho, d_inf), kBandOD));
   }
 }
 
@@ -682,10 +771,12 @@ __device__ __forceinline__ void flush(unsigned long long* best, int s,
 __global__ void __launch_bounds__(kWalkThreads)
 raycast_pairs_kernel(const float* __restrict__ f,        // (S*256, 10)
                      const float* __restrict__ trif,     // (NB, 10, 5*TB)
+                     const float* __restrict__ radius,   // (NB)
                      const int* __restrict__ offsets,    // (S+1)
                      const int* __restrict__ blocks,     // (P)
                      unsigned long long* __restrict__ best,  // (S*256)
-                     int n_subtiles, int n_pairs, int tb, int vec, float t_init) {
+                     RawInputs raw, int n_subtiles, int n_pairs, int tb, int vec,
+                     float t_init) {
   extern __shared__ __align__(16) float panels[];  // 2 x kCoef * tb
   const int panel = kCoef * tb;
   const int p0 = blockIdx.x * kChunk;
@@ -699,9 +790,11 @@ raycast_pairs_kernel(const float* __restrict__ f,        // (S*256, 10)
   int s = lo;
   int s_end = offsets[s + 1];
   float x[kRays][9];
+  float kd[kRays], km[kRays];
   float bt[kRays];
   int bs[kRays];
-  load_rays(f, s, x);
+  unsigned n_f64 = 0;
+  load_rays(f, s, x, kd, km);
 #pragma unroll
   for (int i = 0; i < kRays; ++i) {
     bt[i] = t_init;
@@ -722,17 +815,23 @@ raycast_pairs_kernel(const float* __restrict__ f,        // (S*256, 10)
         ++s;
         s_end = offsets[s + 1];
       } while (p >= s_end);
-      load_rays(f, s, x);
+      load_rays(f, s, x, kd, km);
 #pragma unroll
       for (int i = 0; i < kRays; ++i) {
         bt[i] = t_init;
         bs[i] = -1;
       }
     }
-    walk_panel(panels + ((p - p0) & 1) * panel, blocks[p], tb, x, bt, bs);
+    const int b = blocks[p];
+    walk_panel(panels + ((p - p0) & 1) * panel, b, tb, __ldg(radius + b), x, kd, km, bt, bs,
+               raw, s, n_f64);
     __syncthreads();  // the buffer may be refilled
   }
   flush(best, s, bt, bs);
+  if (raw.f64_count) {
+    const unsigned total = __reduce_add_sync(kFull, n_f64);
+    if ((threadIdx.x & 31) == 0 && total) atomicAdd(raw.f64_count, (unsigned long long)total);
+  }
 }
 
 __global__ void best_init(unsigned long long* best, int n, unsigned long long miss) {
@@ -812,10 +911,15 @@ int raycast_pairs_prepass_launch(const void* origins, const void* dirs,
 
 // The pair walk: best_init, raycast_pairs_kernel over the n_pairs pairs, then
 // best_finalize into t_out (+inf on a miss) and slot_out (-1 on a miss).
-int raycast_pairs_launch(const void* f, const void* trif, const void* offsets,
-                         const void* blocks, void* best, void* t_out, void* slot_out,
-                         int n_subtiles, int n_pairs, int tb, int vec, float t_init,
-                         void* stream) {
+// origins, dirs (S*256, 3) are the rays of f's rows, tri_data (NB, 16, TB)
+// the triangles of trif's panels and radius (NB) their block radii; all
+// float32.  f64_count: null, or (the counting launch) one zeroed uint64 to
+// which the walk adds its float64 edge decisions.
+int raycast_pairs_launch(const void* f, const void* origins, const void* dirs,
+                         const void* trif, const void* tri_data, const void* radius,
+                         const void* offsets, const void* blocks, void* best, void* t_out,
+                         void* slot_out, void* f64_count, int n_subtiles, int n_pairs, int tb,
+                         int vec, float t_init, void* stream) {
   if (n_subtiles <= 0 || n_pairs < 0 || tb <= 0 || (vec && tb % 4)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -834,9 +938,12 @@ int raycast_pairs_launch(const void* f, const void* trif, const void* offsets,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
+    const RawInputs raw{(const float*)origins, (const float*)dirs, (const float*)tri_data,
+                        (unsigned long long*)f64_count};
     raycast_pairs_kernel<<<(n_pairs + kChunk - 1) / kChunk, kWalkThreads, smem, st>>>(
-        (const float*)f, (const float*)trif, (const int*)offsets, (const int*)blocks,
-        (unsigned long long*)best, n_subtiles, n_pairs, tb, vec, t_init);
+        (const float*)f, (const float*)trif, (const float*)radius, (const int*)offsets,
+        (const int*)blocks, (unsigned long long*)best, raw, n_subtiles, n_pairs, tb, vec,
+        t_init);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

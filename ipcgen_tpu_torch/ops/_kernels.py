@@ -48,7 +48,7 @@ SOURCES = {
 _C_PTR, _C_INT, _C_FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Kernel name -> (its source, the argtypes of ``<kernel>_launch``).
 KERNELS = {
-    "raycast_pairs": ("raycast_pairs", [_C_PTR] * 7 + [_C_INT] * 4 + [_C_FLOAT, _C_PTR]),
+    "raycast_pairs": ("raycast_pairs", [_C_PTR] * 12 + [_C_INT] * 4 + [_C_FLOAT, _C_PTR]),
     "raycast_pairs_prepass": ("raycast_pairs",
                               [_C_PTR] * 13 + [_C_INT] * 4 + [_C_FLOAT, _C_INT, _C_PTR]),
     "raycast_culled": ("raycast_culled",
@@ -265,15 +265,24 @@ def _prepass(origins, dirs, block_lo, block_hi, group_lo, group_hi, group: int,
     return offsets, blocks, groups, union
 
 
-def raycast_pairs_cuda(f, trif, offsets, blocks, t_init: float, sub: int):
+def raycast_pairs_cuda(w: dict, f64_count=None):
     """Launch ``raycast_pairs_kernel`` (csrc/raycast_pairs.cu) over the flat
-    pair list: subtile s walks ``blocks[offsets[s]:offsets[s+1]]``.
+    pair list of ``w`` (``prepare_pairs``' dict, or one with its walk keys):
+    subtile s walks ``blocks[offsets[s]:offsets[s+1]]``.
 
-    f (S*256, 10) float32, trif (NB, 10, 5*TB) float32, offsets (S+1,)
-    int32 with offsets[0] = 0 and offsets[S] = P, blocks (P,) int32, all on
-    one CUDA device; ``sub`` must be 256.  Returns (t (S*256,) float32,
-    +inf on a miss; slot (S*256,) int32, -1 on a miss).
+    ``f`` (S*256, 10) float32 features of the rays ``origins``, ``dirs``
+    (S*256, 3) float32; ``trif`` (NB, 10, 5*TB) float32 panels of
+    ``tri_data`` (NB, 16, TB) float32, ``radius`` (NB,) float32 their
+    ``block_radius``; ``offsets`` (S+1,) int32 with offsets[0] = 0 and
+    offsets[S] = P, ``blocks`` (P,) int32; all on one CUDA device; ``sub``
+    must be 256; ``t_init`` the initial best t.  ``f64_count``: None, or a
+    zeroed (1,) int64 tensor on the device to which the walk adds the
+    (ray, triangle) tests whose edge test float64 decided.  Returns (t
+    (S*256,) float32, +inf on a miss; slot (S*256,) int32, -1 on a miss).
     """
+    f, trif, offsets, blocks = w["f"], w["trif"], w["offsets"], w["blocks"]
+    origins, dirs, tri_data, radius = w["origins"], w["dirs"], w["tri_data"], w["radius"]
+    sub = w["sub"]
     device = f.device
     if device.type != "cuda":
         raise ValueError(f"raycast_pairs_cuda: f is on {device}, not CUDA")
@@ -281,6 +290,11 @@ def raycast_pairs_cuda(f, trif, offsets, blocks, t_init: float, sub: int):
     _check(trif, "trif", torch.float32, 3, device)
     _check(offsets, "offsets", torch.int32, 1, device)
     _check(blocks, "blocks", torch.int32, 1, device)
+    for x, name, ndim in ((origins, "origins", 2), (dirs, "dirs", 2),
+                          (tri_data, "tri_data", 3), (radius, "radius", 1)):
+        _check(x, name, torch.float32, ndim, device)
+    if f64_count is not None:
+        _check(f64_count, "f64_count", torch.int64, 1, device)
     if sub != 256:
         raise ValueError(f"sub must be 256 (64 threads x 4 rays), got {sub}")
     n_subtiles = offsets.shape[0] - 1
@@ -291,14 +305,22 @@ def raycast_pairs_cuda(f, trif, offsets, blocks, t_init: float, sub: int):
         raise ValueError(f"f: shape {tuple(f.shape)}, expected ({n_subtiles * sub}, 10) "
                          f"for {n_subtiles} subtiles (one fewer than offsets)")
     tb = width // 5
+    if origins.shape != (n_subtiles * sub, 3) or dirs.shape != origins.shape:
+        raise ValueError(f"origins/dirs: shapes {tuple(origins.shape)}, {tuple(dirs.shape)}, "
+                         f"expected ({n_subtiles * sub}, 3): one ray a row of f")
+    if tri_data.shape != (nb, 16, tb) or radius.shape != (nb,):
+        raise ValueError(f"tri_data/radius: shapes {tuple(tri_data.shape)}, "
+                         f"{tuple(radius.shape)}, expected ({nb}, 16, {tb}) and ({nb},)")
     vec = int(tb % 4 == 0 and trif.data_ptr() % 16 == 0)
     best = torch.empty(n_subtiles * sub, dtype=torch.int64, device=device)
     t = torch.empty(n_subtiles * sub, dtype=torch.float32, device=device)
     slot = torch.empty(n_subtiles * sub, dtype=torch.int32, device=device)
     _launch("raycast_pairs", device,
-            f.data_ptr(), trif.data_ptr(), offsets.data_ptr(), blocks.data_ptr(),
-            best.data_ptr(), t.data_ptr(), slot.data_ptr(), n_subtiles,
-            blocks.shape[0], tb, vec, float(t_init))
+            f.data_ptr(), origins.data_ptr(), dirs.data_ptr(), trif.data_ptr(),
+            tri_data.data_ptr(), radius.data_ptr(), offsets.data_ptr(), blocks.data_ptr(),
+            best.data_ptr(), t.data_ptr(), slot.data_ptr(),
+            None if f64_count is None else f64_count.data_ptr(), n_subtiles,
+            blocks.shape[0], tb, vec, float(w["t_init"]))
     return t, slot
 
 

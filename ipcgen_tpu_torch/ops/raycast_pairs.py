@@ -29,13 +29,50 @@ which decides the "auto" ray sort as in JAX.  The pair walk runs over the
 
 For each (ray, triangle) the five Pluecker products of ``build_trif`` give
 three edge sides, ``t_num`` and ``t_den``, all in float32 (the TPU's bf16x3
-split for the MXU has no counterpart here).  One sign test covers the
-barycentric signs and t >= 0 (watertight: a shared edge's side value is
-exactly negated in the neighbouring triangle); ``|num| > 1e-6 |den|``
-enforces t > 1e-6 and ``|den| > 1e-9`` rejects plane-parallel rays, so the
-0/0 of a padded triangle never wins.  The running best starts at
-(t_init, -1); a candidate replaces it when its t is smaller, or equal with a
-smaller packed slot (the Pallas kernels' tie rule).
+split for the MXU has no counterpart here).  ``|num| > 1e-6 |den|``
+enforces t > 1e-6, ``|den| > 1e-9`` rejects plane-parallel rays (so the 0/0
+of a padded triangle never wins) and num must have den's sign.  The running
+best starts at (t_init, -1); a candidate replaces it when its t is smaller,
+or equal with a smaller packed slot (the Pallas kernels' tie rule).
+
+The edge test: closed triangles, decided exactly
+------------------------------------------------
+A triangle is hit when each of its three sides is 0 or has den's sign
+(closed triangles, as the oracle's ``u >= -eps``, ``v >= -eps``,
+``u + v <= 1 + eps``): a ray on a shared edge or vertex is inside every
+triangle that meets there, and the tie rule picks one.  The float32 sides
+are computed about a scene centre, where terms of |p||q| cancel down to the
+small side of a grazing ray, so a float32 sign near 0 is not to be trusted.
+``side_band`` bounds the float32 side's error for a (ray, block): with
+u = 2^-24, R the block's largest centred vertex coordinate
+(``block_radius``) and the ray's features d, m = (o - c) x d and o - c,
+
+    |side32 - side| <= u R (BAND_D R |d|_1 + BAND_M |m|_1
+                            + BAND_OD |o - c|_inf |d|_inf),
+
+where side is the exact side of the float32 inputs (the vertices v0,
+v0 + e1, v0 + e2 and the ray o, d in real arithmetic; it does not depend on
+the centre).  Per coordinate, the centred vertices carry <= 2.01 u R (one
+rounding of v0 - c, one of + e), so a cross-product coordinate of
+``build_trif`` is off by <= 4.01 u R^2 (its own rounding) + 8.04 u R^2 (its
+rounded vertices), an edge vector by <= 6.03 u R and a coordinate of m by
+<= 6.01 u |o - c|_inf |d|_inf; the six-term dot product adds <= 10.1 u times
+the sum of its terms' magnitudes, 2 R^2 |d|_1 + 2 R |m|_1, in any summation
+order, with or without FMA (which covers the plain version's ten-term
+matmul: its other four terms are exact zeros).  Summed, 32.3, 26.3 and 36.2,
+rounded up for the float32 evaluation of the band itself.
+
+A side beyond the band has the exact side's sign, so a triangle with one on
+the wrong side is rejected in float32, and one with all three on den's side
+is hit.  Otherwise, and only when its t would replace the running best,
+float64 decides: the three sides again from the raw inputs, ``tri_data``
+rows 0-8 and the ray's own float32 o and d, about the ray's origin rather
+than a scene centre (``sides_f64``: d.((p - o) x (q - o)), where the
+vertex differences are exact for a scene's coordinates and a ray that
+passes an edge by 1e-16 m keeps its sign), each product and sum rounded on
+its own in one fixed order, so the kernel's float64 sides equal the plain
+version's bit for bit and a shared edge's two sides are exact negatives.
+t stays the float32 ``|num| / |den|``.
 """
 
 from __future__ import annotations
@@ -54,6 +91,13 @@ EPS_T = 1e-6  # t > eps as |num| > eps * |den|
 EPS_DEN = 1e-9  # |t_den| > eps
 _BIG = 3.0e38
 _INT32_MAX = 2**31 - 1
+# The float32 side's error bound (module docstring; kBand* in
+# csrc/raycast_pairs.cu): u times these.
+BAND_U = 2.0**-24
+BAND_D = 33.0
+BAND_M = 27.0
+BAND_OD = 37.0
+_RADIUS_SLACK = 1.0 + 2.0**-20  # R and |o - c| also bound the exact values
 
 
 def _elem_budget(device: torch.device, cuda: int, cpu: int) -> int:
@@ -119,6 +163,74 @@ def ray_features(origins: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     one = torch.ones((origins.shape[0], 1), dtype=torch.float32,
                      device=origins.device)
     return torch.cat([dirs, m, origins, one], dim=1).contiguous()
+
+
+def block_radius(tri_data: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
+    """(NB,) float32 R of ``side_band``: the largest |coordinate| of the
+    centred vertices ``build_trif`` rounds (v0 - c, then + e1, + e2) over the
+    block's triangles whose float32 normal is not 0, times a slack that makes
+    it bound the exact centred vertices too; 0 for a block with no such
+    triangle.  A triangle with a zero normal has den = 0 and is never hit,
+    so it needs no bound (the asset's far-away padding is one)."""
+    v0 = tri_data[:, 0:3] - center[None, :, None]  # (NB, 3, TB)
+    e1, e2 = tri_data[:, 3:6], tri_data[:, 6:9]
+    n = torch.stack([e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
+                     e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
+                     e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]], dim=1)
+    live = (n != 0).any(dim=1)  # (NB, TB)
+    r = torch.stack([v0, v0 + e1, v0 + e2]).abs().amax(dim=(0, 2))  # (NB, TB)
+    r = torch.where(live, r, torch.zeros_like(r)).amax(dim=1)
+    return (r * _RADIUS_SLACK).contiguous()
+
+
+def ray_band_terms(f: torch.Tensor):
+    """(R, 10) ray features -> (kd, km) (R,) float32 with ``side_band`` =
+    R (R kd + km): kd = BAND_D u |d|_1, km = BAND_M u |m|_1 +
+    BAND_OD u |o - c|_inf |d|_inf, in the kernel's order of operations
+    (``fmax`` as CUDA's fmaxf)."""
+    a = f[:, 0:9].abs()
+    d1 = (a[:, 0] + a[:, 1]) + a[:, 2]
+    d_inf = torch.fmax(torch.fmax(a[:, 0], a[:, 1]), a[:, 2])
+    m1 = (a[:, 3] + a[:, 4]) + a[:, 5]
+    rho = torch.fmax(torch.fmax(a[:, 6], a[:, 7]), a[:, 8]) * _RADIUS_SLACK
+    kd = d1 * (BAND_U * BAND_D)
+    km = m1 * (BAND_U * BAND_M) + (rho * d_inf) * (BAND_U * BAND_OD)
+    return kd, km
+
+
+def side_band(radius: torch.Tensor, kd: torch.Tensor, km: torch.Tensor) -> torch.Tensor:
+    """The float32 side's error bound (module docstring) for blocks of
+    ``radius`` and rays of ``ray_band_terms``, broadcast: R (R kd + km)."""
+    return radius * (radius * kd + km)
+
+
+def sides_f64(o: torch.Tensor, d: torch.Tensor, tri9: torch.Tensor) -> torch.Tensor:
+    """(n, 3) float64 edge sides of rays o, d (n, 3) float32 against
+    triangles given as ``tri_data`` rows 0-8 (n, 9) float32 (v0, e1, e2),
+    about the ray's own origin: for the edges a -> b, b -> c, c -> a of
+    a = v0, b = v0 + e1, c = v0 + e2, the side d.((p - o) x (q - o)) (the
+    Pluecker side with the moment o x d = 0, so no scene centre enters).
+    Each product and sum is rounded on its own, in this order (the
+    kernel's ``inside_f64``)."""
+    o, d, tri9 = o.double(), d.double(), tri9.double()
+    v0 = tri9[:, 0:3]
+    a, b, c = v0 - o, (v0 + tri9[:, 3:6]) - o, (v0 + tri9[:, 6:9]) - o
+
+    def side(p, q):
+        cx = p[:, 1] * q[:, 2] - p[:, 2] * q[:, 1]
+        cy = p[:, 2] * q[:, 0] - p[:, 0] * q[:, 2]
+        cz = p[:, 0] * q[:, 1] - p[:, 1] * q[:, 0]
+        return (d[:, 0] * cx + d[:, 1] * cy) + d[:, 2] * cz
+
+    return torch.stack([side(a, b), side(b, c), side(c, a)], dim=1)
+
+
+def inside_f64(sides: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """(n,) bool: each float64 side is 0 or has the sign of ``den`` (n,)
+    (closed triangles); NaN is outside."""
+    pos = (den > 0)[:, None]
+    neg = (den < 0)[:, None]
+    return ((sides == 0) | ((sides > 0) & pos) | ((sides < 0) & neg)).all(dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -500,19 +612,26 @@ def expand_walk_all(offsets, blocks, walk_all, nb: int):
     return new_offsets, new_blocks
 
 
-def raycast_pairs_plain(f, trif, offsets, blocks, t_init: float, sub: int):
+def raycast_pairs_plain(w: dict):
     """Plain PyTorch version of ``raycast_pairs_kernel`` (same inputs, same
-    guards, same tie rule, float32).
+    guards, same edge test, same tie rule), over the walk keys of ``w``
+    (``prepare_pairs``' dict):
 
-    f (S*sub, 10) ray features; trif (NB, 10, 5*TB); the flat pair list
-    offsets (S+1,), blocks (P,): subtile s walks ``blocks[offsets[s]:
-    offsets[s+1]]``.  Returns (t (S*sub,) float32, +inf on a miss; slot
-    (S*sub,) int32 packed block*TB + lane, -1 on a miss).
+    ``f`` (S*sub, 10) ray features of ``origins``, ``dirs`` (S*sub, 3), the
+    raw float32 rays; ``trif`` (NB, 10, 5*TB) the panels of ``tri_data``
+    (NB, 16, TB), ``radius`` (NB,) their ``block_radius``; the flat pair
+    list ``offsets`` (S+1,), ``blocks`` (P,): subtile s walks
+    ``blocks[offsets[s]:offsets[s+1]]``; ``t_init`` the initial best t.
+    Returns (t (S*sub,) float32, +inf on a miss; slot (S*sub,) int32 packed
+    block*TB + lane, -1 on a miss).
     """
+    f, trif, offsets, blocks = w["f"], w["trif"], w["offsets"], w["blocks"]
+    origins, dirs, tri_data, radius = w["origins"], w["dirs"], w["tri_data"], w["radius"]
+    t_init, sub = w["t_init"], w["sub"]
     dev = f.device
     n_subtiles = offsets.shape[0] - 1
-    nb, _, w = trif.shape
-    tb = w // 5
+    width = trif.shape[2]
+    tb = width // 5
     n_rays = n_subtiles * sub
     counts = (offsets[1:] - offsets[:-1]).long()
     pair_sub = torch.repeat_interleave(
@@ -520,19 +639,35 @@ def raycast_pairs_plain(f, trif, offsets, blocks, t_init: float, sub: int):
     pair_blk = blocks.long()
 
     feats = f.view(n_subtiles, sub, N_FEAT)
+    kd, km = (k.view(n_subtiles, sub, 1) for k in ray_band_terms(f))
     best_t = torch.full((n_rays,), float(t_init), device=dev)
     best_s = torch.full((n_rays,), -1, dtype=torch.int32, device=dev)
     lane_rays = torch.arange(sub, device=dev)
-    chunk = max(1, _elem_budget(dev, 1 << 26, 1 << 21) // (sub * w))
+    chunk = max(1, _elem_budget(dev, 1 << 26, 1 << 21) // (sub * width))
     for c in range(0, pair_sub.numel(), chunk):
         ps, pb = pair_sub[c:c + chunk], pair_blk[c:c + chunk]
         g = torch.bmm(feats[ps], trif[pb])  # (k, sub, 5*TB)
         s0, s1, s2, num, den = g.split(tb, dim=2)
-        i0, i1, i2 = s0.view(torch.int32), s1.view(torch.int32), s2.view(torch.int32)
-        inum, iden = num.view(torch.int32), den.view(torch.int32)
-        ok = ((i0 ^ i1) | (i0 ^ i2) | (inum ^ iden)) >= 0
+        iden = den.view(torch.int32)
+        flip = iden & torch.iinfo(torch.int32).min  # den's sign bit
+        # The sides as seen from den's side: inside is >= 0.
+        lo = torch.fmin(torch.fmin((s0.view(torch.int32) ^ flip).view(torch.float32),
+                                   (s1.view(torch.int32) ^ flip).view(torch.float32)),
+                        (s2.view(torch.int32) ^ flip).view(torch.float32))
+        r = radius[pb][:, None, None]
+        band = side_band(r, kd[ps], km[ps])  # (k, sub, 1)
         an, ad = num.abs(), den.abs()
-        ok = ok & (an > EPS_T * ad) & (ad > EPS_DEN)
+        ok = ~(lo < -band) & ((num.view(torch.int32) ^ iden) >= 0) \
+            & (an > EPS_T * ad) & (ad > EPS_DEN)
+        # A side within the band: float64 decides (the kernel asks it only
+        # where t would replace its running best; the result is the same).
+        unsure = ok & ~(lo > band)
+        if bool(unsure.any()):
+            k_i, j_i, l_i = unsure.nonzero(as_tuple=True)
+            ray = ps[k_i] * sub + j_i
+            tri9 = tri_data[pb[k_i], 0:9, l_i]
+            ok[k_i, j_i, l_i] = inside_f64(sides_f64(origins[ray], dirs[ray], tri9),
+                                           den[k_i, j_i, l_i])
         t = torch.where(ok, an / ad, torch.full_like(an, float("inf")))
         tmin, lane = t.min(dim=2)  # first minimum: smallest lane
         slot = (pb[:, None] * tb + lane).to(torch.int32).reshape(-1)
@@ -550,18 +685,22 @@ def raycast_pairs_plain(f, trif, offsets, blocks, t_init: float, sub: int):
     return t_out, best_s
 
 
-def intersect_pairs(f, trif, offsets, blocks, walk_all, t_init: float, sub: int):
-    """Nearest hit of every ray over its subtile's pairs: ``blocks[offsets[s]:
-    offsets[s+1]]``, or every block where ``walk_all[s]`` is set (``walk_all``
-    may be None: no such subtile).  The kernel for CUDA tensors, its plain
-    version for CPU tensors."""
-    offsets, blocks = expand_walk_all(offsets, blocks, walk_all, trif.shape[0])
+def intersect_pairs(p: dict):
+    """Nearest hit of every ray over its subtile's pairs, for the walk keys
+    of ``p`` (``prepare_pairs``' dict; see ``raycast_pairs_plain``):
+    ``blocks[offsets[s]:offsets[s+1]]``, or every block where
+    ``walk_all[s]`` is set (``walk_all`` may be None: no such subtile).  The
+    kernel for CUDA tensors, its plain version for CPU tensors."""
+    offsets, blocks = expand_walk_all(p["offsets"], p["blocks"], p["walk_all"],
+                                      p["trif"].shape[0])
+    w = {**p, "offsets": offsets, "blocks": blocks}
+    f = p["f"]
     if f.device.type == "cuda":
         from ipcgen_tpu_torch.ops import _kernels
 
-        return _kernels.raycast_pairs_cuda(f, trif, offsets, blocks, t_init, sub)
+        return _kernels.raycast_pairs_cuda(w)
     if f.device.type == "cpu":
-        return raycast_pairs_plain(f, trif, offsets, blocks, t_init, sub)
+        return raycast_pairs_plain(w)
     raise ValueError(f"raycast_pairs: unsupported device {f.device}")
 
 
@@ -589,10 +728,12 @@ def prepare_pairs(origins, dirs, tri_data, block_lo, block_hi, *,
     as in ``raycast_mxu_components``), cut into 256-ray subtiles.
 
     Returns a dict with the walk's inputs (``f``, ``trif``, ``offsets``,
-    ``blocks``, ``walk_all`` = None, ``t_init``, ``sub``), the bookkeeping
+    ``blocks``, ``walk_all`` = None, ``t_init``, ``sub``, and for its float64
+    edge test ``origins``, ``dirs``, ``tri_data`` and ``radius``), the
+    bookkeeping
     (``n``, ``order``, ``overflow`` (T,) bool: the tiles JAX's caps would
     overflow), the prepass inputs (``origins``, ``dirs``: the rays sorted
-    and padded) and its sizing (``tile``, ``group``, and JAX's caps
+    and padded, as the walk gets them) and its sizing (``tile``, ``group``, and JAX's caps
     ``gmax``, ``vmax``).
     """
     tile = 1024 if sort_rays else 2048
@@ -614,6 +755,7 @@ def prepare_pairs(origins, dirs, tri_data, block_lo, block_hi, *,
 
     center = (_nanmin(block_lo, 0) + _nanmax(block_hi, 0)) * 0.5
     trif = build_trif(tri_data, center)
+    radius = block_radius(tri_data, center)
     # Prepass sizing as in raycast_mxu.py:1001-1030; gmax and vmax are JAX's
     # caps, used here only for its overflow predicate.
     group = 8 if nb <= 8192 else (16 if nb <= 32768 else 32)
@@ -627,7 +769,8 @@ def prepare_pairs(origins, dirs, tri_data, block_lo, block_hi, *,
         n_sub=n_sub)
     return dict(
         f=ray_features(origins - center, dirs), trif=trif, offsets=offsets,
-        blocks=blocks, walk_all=None, t_init=t_init, sub=SUB_MAX, n=n,
+        blocks=blocks, walk_all=None, t_init=t_init, sub=SUB_MAX, tri_data=tri_data,
+        radius=radius, n=n,
         order=order, overflow=(groups > gmax) | (union > vmax),
         origins=origins, dirs=dirs, tile=tile, group=group, gmax=gmax, vmax=vmax,
     )
@@ -657,8 +800,7 @@ def raycast_pairs_components(origins, dirs, tri_data, block_lo, block_hi, *,
             origins, dirs, tri_data, block_lo, block_hi, t_max=t_max,
             sort_rays=True,
         )
-    t, slot = intersect_pairs(p["f"], p["trif"], p["offsets"], p["blocks"],
-                              p["walk_all"], p["t_init"], p["sub"])
+    t, slot = intersect_pairs(p)
     n, order = p["n"], p["order"]
     t, slot = t[:n], slot[:n]
     if order is not None:

@@ -137,8 +137,7 @@ def _pair_parts(st: dict, asset, intr, o, d) -> None:
     st["prepass_count_pass_ms"] = passes["count"]
     st["prepass_fill_pass_ms"] = passes["fill"]
     st["pair_list_build_ms"] = st["prepass_ms"] - passes["count"] - passes["fill"]
-    args = [p["f"], p["trif"], p["offsets"], p["blocks"], p["t_init"], p["sub"]]
-    st["walk_ms"], (t, slot) = _timed(lambda: _kernels.raycast_pairs_cuda(*args))
+    st["walk_ms"], (t, slot) = _timed(lambda: _kernels.raycast_pairs_cuda(p))
     st["finalize_ms"], _ = _timed(lambda: finalize_result(o, d, t, slot, asset))
 
     counts = (p["offsets"][1:] - p["offsets"][:-1]).long()

@@ -275,16 +275,51 @@ def test_kernel_matches_plain_on_card(cuda_device):
                                               device=cuda_device), asset.num_blocks)
     cases.append(p)
     for p in cases:
-        args = (p["f"], p["trif"], p["offsets"], p["blocks"], p["t_init"], p["sub"])
         before = _kernels.LAUNCHES["raycast_pairs"]
-        tk, sk = _kernels.raycast_pairs_cuda(*args)
+        tk, sk = _kernels.raycast_pairs_cuda(p)
         assert _kernels.LAUNCHES["raycast_pairs"] == before + 1
-        tp, sp = pairs.raycast_pairs_plain(*args)
+        tp, sp = pairs.raycast_pairs_plain(p)
         same = sk == sp
         assert same.float().mean().item() >= 0.9999
         hit = same & (sk >= 0)
         rel = ((tk - tp).abs() / tp.abs())[hit]
         assert rel.max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_kernel_edge_test_on_card(cuda_device):
+    """The shared-edge wall from both sides and the 1 and 10 um graze sets of
+    tests/test_torch_pair_edges.py: the kernel hits every wall ray and gives
+    the plain version's slot on every ray, t within 1e-5 relative; its
+    counting launch gives the same bits and counts float64 decisions on the
+    wall, whose rays all lie on edges."""
+    from ipcgen_tpu_torch.ops import _kernels
+    from test_torch_pair_edges import edge_points, graze_rays, graze_scene, wall
+
+    verts, tris = wall()
+    yz = edge_points()
+    n = len(yz)
+    cases = []
+    for sign in (1.0, -1.0):
+        o = np.concatenate([np.full((n, 1), 1.0 - sign, np.float32), yz], axis=1)
+        d = np.tile(np.array([[sign, 0, 0]], np.float32), (n, 1))
+        cases.append(("wall", verts, tris, o, d))
+    gv, gt, n_small = graze_scene()
+    for delta in (1e-6, 1e-5):
+        cases.append(("graze", gv, gt, *graze_rays(gv, gt, n_small, delta, seed=1)))
+    for kind, v, t, o, d in cases:
+        asset = build_scene_asset(v, t, block_size=32, super_factor=2, device=cuda_device)
+        p = pairs.prepare_pairs(t_(o).to(cuda_device), t_(d).to(cuda_device), asset.tri_data,
+                                asset.block_lo, asset.block_hi, t_max=20.0)
+        tk, sk = _kernels.raycast_pairs_cuda(p)
+        n_f64 = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+        tc, sc = _kernels.raycast_pairs_cuda(p, f64_count=n_f64)
+        tp, sp = pairs.raycast_pairs_plain(p)
+        assert torch.equal(sk, sp) and torch.equal(tc, tk) and torch.equal(sc, sk)
+        hit = sk >= 0
+        assert ((tk - tp).abs() / tp.abs())[hit].max().item() <= 1e-5
+        if kind == "wall":
+            assert bool(hit[:n].all()) and n_f64.item() > 0
 
 
 @pytest.mark.cuda
@@ -294,19 +329,29 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda_device):
     f = torch.zeros((256, 10), device=cuda_device)
     trif = torch.zeros((1, 10, 640), device=cuda_device)
     i32 = dict(dtype=torch.int32, device=cuda_device)
-    good = (f, trif, torch.zeros(2, **i32), torch.zeros(0, **i32), 1e30, 256)
-    t, s = _kernels.raycast_pairs_cuda(*good)
+    rays = torch.zeros((256, 3), device=cuda_device)
+    good = dict(f=f, trif=trif, offsets=torch.zeros(2, **i32), blocks=torch.zeros(0, **i32),
+                t_init=1e30, sub=256, origins=rays, dirs=rays,
+                tri_data=torch.zeros((1, 16, 128), device=cuda_device),
+                radius=torch.zeros(1, device=cuda_device))
+    t, s = _kernels.raycast_pairs_cuda(good)
     assert torch.all(s == -1) and torch.all(torch.isinf(t))  # no pairs: every ray misses
     with pytest.raises(TypeError):
-        _kernels.raycast_pairs_cuda(f.double(), *good[1:])
+        _kernels.raycast_pairs_cuda(dict(good, f=f.double()))
     with pytest.raises(ValueError):
-        _kernels.raycast_pairs_cuda(f.cpu(), *good[1:])
+        _kernels.raycast_pairs_cuda(dict(good, f=f.cpu()))
     with pytest.raises(ValueError):
-        _kernels.raycast_pairs_cuda(f[:, :9], *good[1:])
+        _kernels.raycast_pairs_cuda(dict(good, f=f[:, :9]))
     with pytest.raises(ValueError):  # one subtile of 128 rays
-        _kernels.raycast_pairs_cuda(f[:128], *good[1:5], 128)
+        _kernels.raycast_pairs_cuda(dict(good, f=f[:128], sub=128))
     with pytest.raises(TypeError):
-        _kernels.raycast_pairs_cuda(f, trif, good[2].long(), *good[3:])
+        _kernels.raycast_pairs_cuda(dict(good, offsets=good["offsets"].long()))
+    with pytest.raises(ValueError):  # the raw rays must be one a feature row
+        _kernels.raycast_pairs_cuda(dict(good, origins=rays[:128]))
+    with pytest.raises(ValueError):  # tri_data of another block size
+        _kernels.raycast_pairs_cuda(dict(good, tri_data=good["tri_data"][:, :, :64]))
+    with pytest.raises(TypeError):  # the float64 count is one int64
+        _kernels.raycast_pairs_cuda(good, f64_count=torch.zeros(1, **i32))
 
 
 @pytest.mark.cuda

@@ -171,8 +171,7 @@ def test_flat_walk_equals_capped_walk_all_formulation(block_size):
     o, d = t_(origins), t_(dirs)
     p = pairs.prepare_pairs(o, d, asset.tri_data, asset.block_lo, asset.block_hi,
                             t_max=20.0)
-    t_new, s_new = pairs.raycast_pairs_plain(p["f"], p["trif"], p["offsets"],
-                                             p["blocks"], p["t_init"], p["sub"])
+    t_new, s_new = pairs.raycast_pairs_plain(p)
     vmax = max(2, asset.num_blocks // 4)
     ids, counts, ovf, masks = pairs.candidate_blocks(
         o, d, asset.block_lo, asset.block_hi, t_max=20.0, vmax=vmax, group=p["group"],
@@ -180,8 +179,8 @@ def test_flat_walk_equals_capped_walk_all_formulation(block_size):
     assert bool(ovf.any())
     offsets, blocks, walk_all = pairs.subtile_pairs(ids, counts, ovf, masks,
                                                     p["tile"] // 256)
-    t_old, s_old = pairs.intersect_pairs(p["f"], p["trif"], offsets, blocks, walk_all,
-                                         p["t_init"], p["sub"])
+    t_old, s_old = pairs.intersect_pairs(dict(p, offsets=offsets, blocks=blocks,
+                                              walk_all=walk_all))
     assert torch.equal(s_new, s_old)
     hit = s_new >= 0
     assert hit.float().mean().item() > 0.5

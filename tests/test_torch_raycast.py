@@ -124,9 +124,10 @@ def test_forced_overflow_walks_all_blocks():
     offsets, blocks, walk_all = pairs.subtile_pairs(ids, counts, ovf, masks, 4)
     assert blocks.numel() == 0 and bool((walk_all == 1).all())
     center = (pairs._nanmin(asset.block_lo, 0) + pairs._nanmax(asset.block_hi, 0)) * 0.5
-    t, slot = pairs.intersect_pairs(
-        pairs.ray_features(o - center, d), pairs.build_trif(asset.tri_data, center),
-        offsets, blocks, walk_all, 1e30, 256)
+    t, slot = pairs.intersect_pairs(dict(
+        f=pairs.ray_features(o - center, d), trif=pairs.build_trif(asset.tri_data, center),
+        offsets=offsets, blocks=blocks, walk_all=walk_all, t_init=1e30, sub=256, origins=o,
+        dirs=d, tri_data=asset.tri_data, radius=pairs.block_radius(asset.tri_data, center)))
     res = finalize_result(o, d, t, slot, asset)
     ref = raycast_asset(o, d, asset, backend="brute")
     hp, ip, xp, tp = np_res(res)
@@ -176,24 +177,27 @@ def test_padding_never_wins_and_ties_go_to_smallest_slot():
     assert np.all(tden[0][:, [0, 1, 2, 3, 4, 6, 7]] == 0.0)
     origins = np.array([[1, 1, 0], [10, 10, 0]], np.float32)
     dirs = np.array([[0, 0, 1], [0, 0, 1]], np.float32)
-    f = pairs.ray_features(t_(origins), t_(dirs))
-    f = torch.cat([f, f[-1:].expand(254, 10)])  # one 256-ray subtile
-    walk = torch.zeros(1, dtype=torch.int32)
+    o = torch.cat([t_(origins), t_(origins)[-1:].expand(254, 3)])  # one 256-ray subtile
+    d = torch.cat([t_(dirs), t_(dirs)[-1:].expand(254, 3)])
+    f = pairs.ray_features(o, d)
+    base = dict(f=f, trif=trif, t_init=1e30, sub=256, origins=o, dirs=d,
+                tri_data=asset.tri_data,
+                radius=pairs.block_radius(asset.tri_data, torch.zeros(3)))
     # The list walks block 1 first: the tie rule, not the walk order, decides.
     for blocks in ([1, 0], [0, 1]):
-        t, slot = pairs.intersect_pairs(
-            f, trif, torch.tensor([0, 2], dtype=torch.int32),
-            torch.tensor(blocks, dtype=torch.int32), walk, 1e30, 256)
+        t, slot = pairs.intersect_pairs(dict(
+            base, offsets=torch.tensor([0, 2], dtype=torch.int32),
+            blocks=torch.tensor(blocks, dtype=torch.int32),
+            walk_all=torch.zeros(1, dtype=torch.int32)))
         assert slot[0].item() == 5 and abs(t[0].item() - 2.0) < 1e-6
         assert slot[1].item() == -1 and np.isinf(t[1].item())
-    t, slot = pairs.intersect_pairs(f, trif, torch.tensor([0, 0], dtype=torch.int32),
-                                    torch.zeros(0, dtype=torch.int32),
-                                    torch.ones(1, dtype=torch.int32), 1e30, 256)
+    every = dict(base, offsets=torch.tensor([0, 0], dtype=torch.int32),
+                 blocks=torch.zeros(0, dtype=torch.int32),
+                 walk_all=torch.ones(1, dtype=torch.int32))
+    t, slot = pairs.intersect_pairs(every)
     assert slot[0].item() == 5
     # The t_max cap is the initial best: a hit at t = 2 is dropped under 1.5.
-    t, slot = pairs.intersect_pairs(f, trif, torch.tensor([0, 0], dtype=torch.int32),
-                                    torch.zeros(0, dtype=torch.int32),
-                                    torch.ones(1, dtype=torch.int32), 1.5, 256)
+    t, slot = pairs.intersect_pairs(dict(every, t_init=1.5))
     assert slot[0].item() == -1
 
 
