@@ -32,7 +32,6 @@ import json
 import os
 import pickle
 import threading
-import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
@@ -48,6 +47,7 @@ from ipcgen_tpu_torch.semantic.annotations import S3DISAnnotationLoader, S3DISCo
 from ipcgen_tpu_torch.utils import native
 from ipcgen_tpu_torch.utils.device import device_or_card
 from ipcgen_tpu_torch.utils.json_utils import NumpyEncoder
+from ipcgen_tpu_torch.utils.profiling import Recorder
 from ipcgen_tpu_torch.utils.viridis import viridis_rgb
 
 
@@ -140,16 +140,18 @@ def _host_nn_small(queries: np.ndarray, refs: np.ndarray) -> np.ndarray:
 
 
 def load_room_label_data(s3dis_data_root, area, room, host_only_nn=False,
-                         spans=None, device="cuda"):
+                         rec=None, device="cuda"):
     """Annotation cloud + exact-join colour match against the raw cloud.
 
     Returns (points, colors, sem, ins), or four Nones when the scene has no
     annotation data.  Unmatched annotation rows take the colour of their
     nearest raw point (host brute force for a small remainder when
-    ``host_only_nn``, else the exact 1-NN on ``device``).
+    ``host_only_nn``, else the exact 1-NN on ``device``).  ``rec`` (a
+    ``Recorder``) takes the prefetch's spans: the parses, the stack and the
+    colour join (``label_bg_*``).
     """
-    if spans is None:
-        spans = {}
+    if rec is None:
+        rec = Recorder()
     if not s3dis_data_root or not area or not room:
         return None, None, None, None
     ann_dir = os.path.join(s3dis_data_root, area, room, "Annotations")
@@ -158,28 +160,26 @@ def load_room_label_data(s3dis_data_root, area, room, host_only_nn=False,
               "colours and labels", flush=True)
         return None, None, None, None
     loader = S3DISAnnotationLoader(s3dis_data_root, verbose=False)
-    t0 = time.time()
-    room_annotations = loader.load_room_annotations(area, room)
-    spans["ann_parse"] = time.time() - t0
+    with rec.span("label_bg_ann_parse"):
+        room_annotations = loader.load_room_annotations(area, room)
     if not room_annotations:
         return None, None, None, None
-    t0 = time.time()
-    points, semantic_labels, instance_labels = (
-        loader.create_labeled_pointcloud_with_instances(room_annotations)
-    )
-    spans["ann_stack"] = time.time() - t0
+    with rec.span("label_bg_ann_stack"):
+        points, semantic_labels, instance_labels = (
+            loader.create_labeled_pointcloud_with_instances(room_annotations)
+        )
     if len(points) == 0:
         return None, None, None, None
-    t0 = time.time()
-    original_points, original_colors = _load_room_original_data(
-        s3dis_data_root, area, room
-    )
-    spans["raw_parse"] = time.time() - t0
+    with rec.span("label_bg_raw_parse"):
+        original_points, original_colors = _load_room_original_data(
+            s3dis_data_root, area, room
+        )
     if original_points is None or original_colors is None:
         print(f"[Labels] warning: {area}/{room} has no raw cloud; its annotation points "
               "get grey colours", flush=True)
         colors = np.ones((len(points), 3), dtype=np.float32) * 0.5
-    else:
+        return points, colors, semantic_labels, instance_labels
+    with rec.span("label_bg_color_join"):
         oc = np.asarray(original_colors)
         idx_exact, matched = _exact_coord_join(points, original_points)
         if matched.all():
@@ -202,37 +202,35 @@ class LabelPrefetch:
 
     Started when the scene loads, so the annotation parse and the grid build
     hide behind trajectory planning and the scan.  An exception in the
-    worker is re-raised by ``join``.
+    worker is re-raised by ``join``.  ``rec`` holds the thread's spans,
+    ``label_load_bg`` around all of it with its CPU seconds as
+    ``label_load_bg_cpu``; the scene absorbs it after the join.
     """
 
     def __init__(self, s3dis_data_root, area, room, device="cuda"):
-        self.seconds = 0.0
-        self.spans: dict = {}
+        self.rec = Recorder()
         self.grid: Optional[LabelGrid] = None
         self._data = (None, None, None, None)
         self._error: Optional[BaseException] = None
         self._thread = threading.Thread(
             target=self._work, args=(s3dis_data_root, area, room, device),
-            daemon=True,
+            name="label_prefetch", daemon=True,
         )
         self._thread.start()
 
     def _work(self, s3dis_data_root, area, room, device):
-        t0 = time.time()
-        try:
-            self._data = load_room_label_data(
-                s3dis_data_root, area, room, host_only_nn=True,
-                spans=self.spans, device=device,
-            )
-            if self._data[0] is not None and len(self._data[0]):
-                tg = time.time()
-                self.grid = LabelGrid(np.asarray(self._data[0], np.float32),
-                                      device=device)
-                self.spans["grid_build"] = time.time() - tg
-        except Exception as e:  # handed to join(), which re-raises it
-            self._error = e
-        finally:
-            self.seconds = time.time() - t0
+        with self.rec.span("label_load_bg", cpu="label_load_bg_cpu"):
+            try:
+                self._data = load_room_label_data(
+                    s3dis_data_root, area, room, host_only_nn=True,
+                    rec=self.rec, device=device,
+                )
+                if self._data[0] is not None and len(self._data[0]):
+                    with self.rec.span("label_bg_grid_build"):
+                        self.grid = LabelGrid(np.asarray(self._data[0], np.float32),
+                                              device=device)
+            except Exception as e:  # handed to join(), which re-raises it
+                self._error = e
 
     def join(self):
         """Block until loaded; returns (points, colors, sem, ins)."""
@@ -362,7 +360,12 @@ class ResultExporter:
 
 class S3DISSimScene:
     """All frames of one simulated room, its exporters and the port's label
-    transfer (reference: s3dis_sim_scene.py:128-699)."""
+    transfer (reference: s3dis_sim_scene.py:128-699).
+
+    ``rec`` (a ``Recorder``; the simulator hands over the one its scan
+    recorded into) holds the room's spans and counters: ``profile``
+    (seconds or counts by name) and ``events`` are its own.
+    """
 
     def __init__(
         self,
@@ -374,6 +377,7 @@ class S3DISSimScene:
         room: Optional[str] = None,
         label_prefetch: Optional[LabelPrefetch] = None,
         device="cuda",
+        rec: Optional[Recorder] = None,
     ):
         self.scene_name = scene_name
         self.simulation_config = simulation_config or {}
@@ -389,9 +393,10 @@ class S3DISSimScene:
         self._label_lock = threading.Lock()
         self._transfer_error: Optional[BaseException] = None
         self.label_prefetch = label_prefetch
-        # Wall-clock sub-spans (scan/d2h/label/export), filled by the
-        # simulator and by save_results below.
-        self.profile: Dict[str, float] = {}
+        self.rec = Recorder() if rec is None else rec
+        self.rec.room = scene_name
+        self.profile: Dict[str, float] = self.rec.profile
+        self.events = self.rec.events
 
     # ------------------------------------------------------------------
     def append_frame(self, frame: S3DISSimFrame) -> None:
@@ -483,19 +488,16 @@ class S3DISSimScene:
         if self.statistics is None:
             self.compute_statistics()
 
-        t0 = time.time()
-        for fmt in formats:
-            if fmt in ("json", "txt"):
-                self.exporter.export_statistics(self.statistics, fmt)
-        if "json" in formats:
-            self.exporter.export_summary(self, "json")
-        elif "txt" in formats:
-            self._save_simple_summary(output_dir)
-        self.profile["export_stats"] = time.time() - t0
-
-        t0 = time.time()
-        self._export_combined_pointcloud(output_dir)
-        self.profile["export_ply_viridis"] = time.time() - t0
+        with self.rec.span("export_stats"):
+            for fmt in formats:
+                if fmt in ("json", "txt"):
+                    self.exporter.export_statistics(self.statistics, fmt)
+            if "json" in formats:
+                self.exporter.export_summary(self, "json")
+            elif "txt" in formats:
+                self._save_simple_summary(output_dir)
+        with self.rec.span("export_ply_viridis"):
+            self._export_combined_pointcloud(output_dir)
         self._export_combined_pointcloud_with_labels(output_dir)
 
     def _save_simple_summary(self, output_dir: Path) -> None:
@@ -555,66 +557,55 @@ class S3DISSimScene:
         if not all_points:
             return
         combined_points = np.vstack(all_points)
-        t0 = time.time()
-        combined_colors, combined_sem, combined_ins = (
-            self._get_colors_and_labels_from_s3dis(combined_points)
-        )
+        with self.rec.span("label_transfer"):
+            combined_colors, combined_sem, combined_ins = (
+                self._get_colors_and_labels_from_s3dis(combined_points)
+            )
         # The callee records the cold-cache annotation disk load as
         # label_load: subtract it so the sub-spans are disjoint.
-        self.profile["label_transfer"] = (
-            time.time() - t0 - self.profile.get("label_load", 0.0)
-        )
+        self.rec.count("label_transfer", -self.profile.get("label_load", 0.0))
         colors_255 = (combined_colors * 255).astype(np.uint8)
-        t0 = time.time()
-        write_labeled_ply(
-            output_dir / "combined_pointcloud_with_label.ply",
-            combined_points,
-            colors_255,
-            combined_sem,
-            combined_ins,
-        )
-        self.profile["export_ply_labeled"] = time.time() - t0
+        with self.rec.span("export_ply_labeled"):
+            write_labeled_ply(
+                output_dir / "combined_pointcloud_with_label.ply",
+                combined_points,
+                colors_255,
+                combined_sem,
+                combined_ins,
+            )
 
     # ------------------------------------------------------------------
     def _ensure_label_cache(self, on_critical_path: bool = True) -> bool:
-        """Populate ``_s3dis_cache`` from the prefetch or a direct load.
-        Returns False only when the scene has no annotation data."""
-        if self._s3dis_cache is not None:
-            return True
+        """Populate ``_s3dis_cache`` from the prefetch or a direct load (an
+        empty dict when the scene has no annotation data).  Returns False
+        only when the scene has no annotation data.  Off the critical path
+        the wait is ``label_bg_join_wait`` and ``label_load`` is 0."""
         with self._label_lock:
-            if self._s3dis_cache is not None:
-                return True
-            t0 = time.time()
-            grid = None
-            if self.label_prefetch is not None:
-                data = self.label_prefetch.join()
-                grid = self.label_prefetch.grid
-                self.profile["label_load_bg"] = self.label_prefetch.seconds
-                for k, v in self.label_prefetch.spans.items():
-                    self.profile[f"label_bg_{k}"] = float(v)
-            else:
-                data = self._load_s3dis_annotations_with_colors()
-            dt = time.time() - t0
-            self.profile["label_load"] = dt if on_critical_path else 0.0
-            if not on_critical_path:
-                self.profile["label_bg_join_wait"] = dt
-            points, colors, labels, instances = data
-            if points is None or len(points) == 0:
-                return False
-            if grid is None:
-                grid = LabelGrid(np.asarray(points, np.float32), device=self.device)
-            self._s3dis_cache = {
-                "points": points, "colors": colors, "labels": labels,
-                "instances": instances, "grid": grid,
-            }
-            return True
+            if self._s3dis_cache is None:
+                grid = None
+                with self.rec.span("label_load" if on_critical_path
+                                   else "label_bg_join_wait"):
+                    if self.label_prefetch is not None:
+                        data = self.label_prefetch.join()
+                        grid = self.label_prefetch.grid
+                        self.rec.absorb(self.label_prefetch.rec)
+                    else:
+                        data = self._load_s3dis_annotations_with_colors()
+                if not on_critical_path:
+                    self.rec.count("label_load", 0.0)
+                points, colors, labels, instances = data
+                self._s3dis_cache = {}
+                if points is not None and len(points):
+                    if grid is None:
+                        grid = LabelGrid(np.asarray(points, np.float32), device=self.device)
+                    self._s3dis_cache = {
+                        "points": points, "colors": colors, "labels": labels,
+                        "instances": instances, "grid": grid,
+                    }
+        return bool(self._s3dis_cache)
 
     def _label_nn(self, queries) -> np.ndarray:
-        grid = self._s3dis_cache["grid"]
-        idx = grid.query(queries)
-        for k, v in grid.profile.items():
-            self.profile[f"label_nn_{k}"] = float(v)
-        return idx
+        return self._s3dis_cache["grid"].query(queries, rec=self.rec)
 
     def start_label_transfer_async(self) -> None:
         """Run the 1-NN label transfer over the scan's device-resident
@@ -627,21 +618,20 @@ class S3DISSimScene:
             return
 
         def _work():
-            t0 = time.time()
-            try:
-                if not self._ensure_label_cache(on_critical_path=False):
-                    self._async_idx = None
-                    return
-                # Only the valid rows: the rest are zero-filled misses.
-                valid = torch.from_numpy(self._device_mask).to(dev_q.device)
-                self._async_idx = self._label_nn(dev_q.reshape(-1, 3)[valid])
-            except Exception as e:  # re-raised by the exporter's join
-                self._transfer_error = e
-            finally:
-                self._async_seconds = time.time() - t0
+            with self.rec.span("label_nn_bg"):
+                try:
+                    if not self._ensure_label_cache(on_critical_path=False):
+                        self._async_idx = None
+                        return
+                    # Only the valid rows: the rest are zero-filled misses.
+                    valid = torch.from_numpy(self._device_mask).to(dev_q.device)
+                    self._async_idx = self._label_nn(dev_q.reshape(-1, 3)[valid])
+                except Exception as e:  # re-raised by the exporter's join
+                    self._transfer_error = e
 
         self._async_idx = None
-        self._transfer_thread = threading.Thread(target=_work, daemon=True)
+        self._transfer_thread = threading.Thread(target=_work, name="label_transfer",
+                                                 daemon=True)
         self._transfer_thread.start()
 
     def _get_colors_and_labels_from_s3dis(self, points: np.ndarray):
@@ -660,7 +650,6 @@ class S3DISSimScene:
                 raise RuntimeError(
                     f"label transfer covered {len(idx)} points, the export "
                     f"has {len(points)}")
-            self.profile["label_nn_bg"] = getattr(self, "_async_seconds", 0.0)
         if idx is None:
             if not self._ensure_label_cache():
                 return self._get_default_colors_and_labels(len(points))

@@ -124,6 +124,7 @@ def label_grid_pieces(q_dev: torch.Tensor, refs: np.ndarray) -> tuple:
     indices)."""
     from ipcgen_tpu_torch.ops.grid_nn import LabelGrid
     from ipcgen_tpu_torch.utils.device import sync
+    from ipcgen_tpu_torch.utils.profiling import Recorder
 
     device = q_dev.device
     sync(device)
@@ -131,14 +132,15 @@ def label_grid_pieces(q_dev: torch.Tensor, refs: np.ndarray) -> tuple:
     grid = LabelGrid(refs, device=device)
     sync(device)
     build_s = time.perf_counter() - t0
+    rec = Recorder()
     t0 = time.perf_counter()
-    idx = grid.query(q_dev)
+    idx = grid.query(q_dev, rec=rec)
     query_s = time.perf_counter() - t0
-    prof = grid.profile
-    return {"build_s": build_s, "query_s": query_s, "l0_s": prof.get("l0"),
-            "l1_rows": prof.get("l1_rows", 0), "l1_s": prof.get("l1", 0.0),
-            "residue_rows": prof.get("residue_rows", 0),
-            "residue_s": prof.get("residue", 0.0), "h0": grid.h0}, idx
+    prof = rec.profile
+    return {"build_s": build_s, "query_s": query_s, "l0_s": prof["label_nn_l0"],
+            "l1_rows": int(prof["label_nn_l1_rows"]), "l1_s": prof.get("label_nn_l1", 0.0),
+            "residue_rows": int(prof["label_nn_residue_rows"]),
+            "residue_s": prof["label_nn_residue"], "h0": grid.h0}, idx
 
 
 def run(device=None, *, n_queries: int = N_QUERIES, n_refs: int = N_REFS,

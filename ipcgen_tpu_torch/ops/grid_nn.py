@@ -33,7 +33,6 @@ candidate position (the window offset, then the slot in the bucket).
 
 from __future__ import annotations
 
-import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -41,6 +40,7 @@ import torch
 
 from ipcgen_tpu_torch.ops.knn import nearest_neighbor_indices, select_smallest
 from ipcgen_tpu_torch.utils.device import device_or_card
+from ipcgen_tpu_torch.utils.profiling import Recorder
 
 # Spatial-hash primes; the hash wraps in uint32 identically on host and device.
 _P1, _P2, _P3 = 73856093, 19349663, 83492791
@@ -183,7 +183,6 @@ class LabelGrid:
         self.refs = refs
         self.n_refs = len(refs)
         self.device = torch.device(device)
-        self.profile: dict = {}
         if self.n_refs == 0:
             return
         self.h0 = _choose_cell_size(refs, cap0)
@@ -212,34 +211,42 @@ class LabelGrid:
         ]
         return torch.cat(out)
 
-    def query(self, queries) -> np.ndarray:
+    def query(self, queries, rec: Optional[Recorder] = None) -> np.ndarray:
         """Exact 1-NN indices into ``refs`` for (N, 3) queries (tensor on any
-        device, or array); returns (N,) int32 numpy."""
+        device, or array); returns (N,) int32 numpy.
+
+        ``rec`` (a ``Recorder``) takes the seconds of each level,
+        ``label_nn_l0``, ``label_nn_l1`` (where rows reached it) and
+        ``label_nn_residue`` (the exact 1-NN, 0 without residue), and the
+        rows queried and left to each: ``label_nn_query_rows``,
+        ``label_nn_l1_rows``, ``label_nn_residue_rows``."""
         n = len(queries)
         if self.n_refs == 0:
             return np.zeros((n,), np.int32)
         if n == 0:
             return np.zeros((0,), np.int32)
-        prof = self.profile = {}
-        t0 = time.time()
-        q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
-        idx = self._run_level(q, 0, self.Q_BLOCK)
-        unresolved = torch.nonzero(idx < 0).flatten()
-        prof["l0"] = time.time() - t0
+        if rec is None:
+            rec = Recorder()
+        rec.count("label_nn_query_rows", n)
+        with rec.span("label_nn_l0"):
+            q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
+            idx = self._run_level(q, 0, self.Q_BLOCK)
+            unresolved = torch.nonzero(idx < 0).flatten()
+        still = unresolved
         if unresolved.numel():
-            t0 = time.time()
-            prof["l1_rows"] = int(unresolved.numel())
-            idx1 = self._run_level(q[unresolved], 1, self.Q_BLOCK_L1)
-            idx[unresolved] = idx1
-            still = unresolved[idx1 < 0]
-            prof["l1"] = time.time() - t0
-            prof["residue_rows"] = int(still.numel())
-            if still.numel():
-                t0 = time.time()
+            with rec.span("label_nn_l1"):
+                idx1 = self._run_level(q[unresolved], 1, self.Q_BLOCK_L1)
+                idx[unresolved] = idx1
+                still = unresolved[idx1 < 0]
+        rec.count("label_nn_l1_rows", unresolved.numel())
+        rec.count("label_nn_residue_rows", still.numel())
+        if still.numel():
+            with rec.span("label_nn_residue"):
                 idx[still] = torch.from_numpy(
                     nearest_neighbor_indices(q[still], self.refs)
                 ).to(self.device)
-                prof["residue"] = time.time() - t0
+        else:
+            rec.count("label_nn_residue", 0.0)
         return idx.cpu().numpy().astype(np.int32)
 
 

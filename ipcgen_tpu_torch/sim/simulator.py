@@ -47,6 +47,7 @@ the ranks (``parallel/shard.py``).
 
 from __future__ import annotations
 
+import functools
 import json
 import time
 from pathlib import Path
@@ -79,6 +80,7 @@ from ipcgen_tpu_torch.trajectory import (
 )
 from ipcgen_tpu_torch.trajectory.waypoint import waypoints_to_pose_batch
 from ipcgen_tpu_torch.utils.device import as_device, sync
+from ipcgen_tpu_torch.utils.profiling import Recorder
 from ipcgen_tpu_torch.viz import (
     MeshVisualizer,
     S3DISVisualizer,
@@ -121,11 +123,26 @@ def resolve_device(device, use_gpu: bool) -> torch.device:
     return torch.device("cpu")
 
 
+def _span(name: str):
+    """Run the method under the span ``name`` of the simulator's room
+    recorder (``self.rec``)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def method(self, *args, **kwargs):
+            with self.rec.span(name):
+                return fn(self, *args, **kwargs)
+        return method
+    return wrap
+
+
 class S3DISSimulator:
     """Loads a scene, plans a trajectory, scans it and exports the results.
 
     ``device``: see ``resolve_device`` (None: the card, unless the config's
-    ``raycast_engine.use_gpu`` is False)."""
+    ``raycast_engine.use_gpu`` is False).  ``rec`` records the room being
+    simulated (``load_scene``, ``trajectory``, ``dispatch`` and
+    ``collect_scan``'s spans); ``collect_scan`` hands it to the room's
+    ``S3DISSimScene`` and starts a fresh one."""
 
     def __init__(
         self,
@@ -148,6 +165,7 @@ class S3DISSimulator:
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(config.get("seed", 0) or 0))
         self._label_prefetch: Optional[LabelPrefetch] = None
+        self.rec = Recorder()
         # The visualisers import matplotlib only when they draw.
         self.trajectory_visualizer = TrajectoryVisualizer()
         self.scan_visualizer = ScanResultVisualizer()
@@ -167,15 +185,17 @@ class S3DISSimulator:
         self.collision_detector = CollisionDetector()
 
     # ------------------------------------------------------------------
+    @_span("load_scene")
     def load_scene(self, scene_path: str, scene_name: Optional[str] = None) -> S3DISScene:
         """Load the mesh, build the resident asset, start the label prefetch
         and set up the trajectory generators."""
+        if scene_name is None:
+            scene_name = Path(scene_path).stem
+        self.rec.room = scene_name
         mesh = TriMesh.load(scene_path)
         if mesh.num_vertices == 0:
             raise ValueError(f"Failed to load mesh file: {scene_path}")
         room_bounds = RoomBounds.from_mesh(mesh)
-        if scene_name is None:
-            scene_name = Path(scene_path).stem
         self.scene = S3DISScene(scene_name, mesh, room_bounds=room_bounds)
         self.scene_asset = build_scene_asset(mesh.vertices, mesh.triangles,
                                              device=self.device)
@@ -203,6 +223,7 @@ class S3DISSimulator:
         )
         return self.scene
 
+    @_span("trajectory")
     def generate_auto_trajectory(self, num_waypoints: int = 20):
         if self.auto_trajectory_generator is None or self.scene is None:
             raise ValueError("Scene not loaded. Call load_scene() first.")
@@ -231,6 +252,7 @@ class S3DISSimulator:
         return waypoints, quality.to_dict()
 
     # ------------------------------------------------------------------
+    @_span("dispatch")
     def dispatch_scan(self, waypoints: List[Waypoint], device=None):
         """Queue the fused multi-waypoint scan.
 
@@ -276,77 +298,78 @@ class S3DISSimulator:
             backend=self.backend,
         )
 
+    @_span("collect_scan")
     def collect_scan(self, batch, waypoints: List[Waypoint],
                      start_time: float) -> S3DISSimScene:
-        """Wait for the scan, build the frames and per-frame statistics, and
-        start the label transfer."""
-        sim_scene = S3DISSimScene(
-            scene_name=self.scene.scene_name,
-            simulation_config=self.config,
-            mesh=self.scene.room_mesh,
-            s3dis_data_root=self.config.get("s3dis_data_root", None),
-            area=self.config.get("area", None),
-            room=self.config.get("room", None),
-            label_prefetch=self._label_prefetch,
-            device=self.device,
-        )
-        self._label_prefetch = None
+        """Wait for the scan, hand the room's recorder and its label
+        transfer to a new ``S3DISSimScene``, and build the frames and
+        per-frame statistics."""
+        rec = self.rec
         total_points_per_scan = self.lidar_config.get_total_points_per_scan()
         room_volume = self.scene.room_bounds.get_volume()
-        t0 = time.time()
-        sync(self.device)
-        sim_scene.profile["scan_exec"] = time.time() - t0
-        t0 = time.time()
-        all_points, all_mask = batch.points_and_mask()
-        sim_scene.profile["d2h"] = time.time() - t0
-        sim_scene.scan_poses = waypoints_to_pose_batch(waypoints)
-        sim_scene.set_device_label_queries(batch.points.reshape(-1, 3), all_mask)
-        sim_scene.start_label_transfer_async()
-        t0 = time.time()
-        origins = np.stack([w.to_pose_matrix()[:3, 3] for w in waypoints])
-        for i in range(len(waypoints)):
-            points = all_points[i][all_mask[i]]
-            rel = points - origins[i][None, :]
-            sensor_ranges = np.linalg.norm(rel, axis=1)
-            safe = np.maximum(sensor_ranges, 1e-12)
-            incident_angles = np.degrees(
-                np.arccos(np.clip(np.abs(rel[:, 2]) / safe, 0.0, 1.0)))
-            # Range stats are norms of world positions (reference formula);
-            # the sensor ranges are reported beside them.
-            ranges = np.linalg.norm(points, axis=1) if len(points) else np.zeros(0)
-            has = len(points) > 0
-            scan_quality = ScanQuality(
-                coverage_ratio=len(points) / total_points_per_scan,
-                num_points=len(points),
-                incident_angle_mean=float(np.mean(incident_angles)) if has else 0,
-                incident_angle_std=float(np.std(incident_angles)) if has else 0,
-                scan_density=len(points) / room_volume,
-                range_mean=float(np.mean(ranges)) if has else 0,
-                range_std=float(np.std(ranges)) if has else 0,
-                sensor_range_mean=float(np.mean(sensor_ranges)) if has else 0.0,
-                sensor_range_std=float(np.std(sensor_ranges)) if has else 0.0,
+        with rec.span("scan_exec"):
+            sync(self.device)
+        with rec.span("d2h"):
+            all_points, all_mask = batch.points_and_mask()
+        with rec.span("label_handoff"):
+            sim_scene = S3DISSimScene(
+                scene_name=self.scene.scene_name,
+                simulation_config=self.config,
+                mesh=self.scene.room_mesh,
+                s3dis_data_root=self.config.get("s3dis_data_root", None),
+                area=self.config.get("area", None),
+                room=self.config.get("room", None),
+                label_prefetch=self._label_prefetch,
+                device=self.device,
+                rec=rec,
             )
-            sim_scene.append_frame(
-                S3DISSimFrame(i, points, incident_angles, scan_quality))
-        sim_scene.profile["frame_build"] = time.time() - t0
-        simulation_time = time.time() - start_time
-        sim_scene.compute_statistics(simulation_time)
-        total_rays = int(all_mask.size)
-        if simulation_time > 0:
-            print(
-                f"[Perf] {total_rays:,} rays / {simulation_time:.3f}s = "
-                f"{total_rays / simulation_time / 1e6:.1f} M rays/s "
-                f"({len(waypoints)} waypoints, device={self.device})"
-            )
+            self._label_prefetch = None
+            self.rec = Recorder()
+            sim_scene.scan_poses = waypoints_to_pose_batch(waypoints)
+            sim_scene.set_device_label_queries(batch.points.reshape(-1, 3), all_mask)
+            sim_scene.start_label_transfer_async()
+        with rec.span("frame_build"):
+            origins = np.stack([w.to_pose_matrix()[:3, 3] for w in waypoints])
+            for i in range(len(waypoints)):
+                points = all_points[i][all_mask[i]]
+                rel = points - origins[i][None, :]
+                sensor_ranges = np.linalg.norm(rel, axis=1)
+                safe = np.maximum(sensor_ranges, 1e-12)
+                incident_angles = np.degrees(
+                    np.arccos(np.clip(np.abs(rel[:, 2]) / safe, 0.0, 1.0)))
+                # Range stats are norms of world positions (reference formula);
+                # the sensor ranges are reported beside them.
+                ranges = np.linalg.norm(points, axis=1) if len(points) else np.zeros(0)
+                has = len(points) > 0
+                scan_quality = ScanQuality(
+                    coverage_ratio=len(points) / total_points_per_scan,
+                    num_points=len(points),
+                    incident_angle_mean=float(np.mean(incident_angles)) if has else 0,
+                    incident_angle_std=float(np.std(incident_angles)) if has else 0,
+                    scan_density=len(points) / room_volume,
+                    range_mean=float(np.mean(ranges)) if has else 0,
+                    range_std=float(np.std(ranges)) if has else 0,
+                    sensor_range_mean=float(np.mean(sensor_ranges)) if has else 0.0,
+                    sensor_range_std=float(np.std(sensor_ranges)) if has else 0.0,
+                )
+                sim_scene.append_frame(
+                    S3DISSimFrame(i, points, incident_angles, scan_quality))
+        with rec.span("statistics"):
+            simulation_time = time.time() - start_time
+            sim_scene.compute_statistics(simulation_time)
+            total_rays = int(all_mask.size)
+            if simulation_time > 0:
+                print(
+                    f"[Perf] {total_rays:,} rays / {simulation_time:.3f}s = "
+                    f"{total_rays / simulation_time / 1e6:.1f} M rays/s "
+                    f"({len(waypoints)} waypoints, device={self.device})"
+                )
         return sim_scene
 
     def run_simulation(self, waypoints: List[Waypoint]) -> S3DISSimScene:
         start_time = time.time()
         batch = self.dispatch_scan(waypoints)
-        dispatch_s = time.time() - start_time
-        scene = self.collect_scan(batch, waypoints, start_time)
-        scene.profile["dispatch"] = dispatch_s
-        return scene
+        return self.collect_scan(batch, waypoints, start_time)
 
     # ------------------------------------------------------------------
     def save_results(self, sim_scene: S3DISSimScene, output_dir: Path,
@@ -417,28 +440,23 @@ class S3DISSimulator:
         the caller can start the next scene's device work while this one's
         export drains.  Visualisations are off in that mode.
         """
-        t0 = time.time()
         self.load_scene(scene_path, scene_name)
-        t1 = time.time()
         waypoints, analysis_info = self.generate_auto_trajectory(num_waypoints)
-        t2 = time.time()
         sim_scene = self.run_simulation(waypoints)
-        sim_scene.profile["load_scene"] = t1 - t0
-        sim_scene.profile["trajectory"] = t2 - t1
         output_dir = Path(output_dir or "s3dis_auto_simulation_results")
 
         def _save() -> None:
-            t3 = time.time()
-            self.save_results(sim_scene, output_dir, waypoints,
-                              save_visualizations=save_visualizations
-                              and save_executor is None)
-            with open(output_dir / "trajectory_analysis.json", "w",
-                      encoding="utf-8") as f:
-                json.dump(analysis_info, f, indent=2, ensure_ascii=False)
-            sim_scene.profile["save"] = time.time() - t3
+            with sim_scene.rec.span("save"):
+                self.save_results(sim_scene, output_dir, waypoints,
+                                  save_visualizations=save_visualizations
+                                  and save_executor is None)
+                with open(output_dir / "trajectory_analysis.json", "w",
+                          encoding="utf-8") as f:
+                    json.dump(analysis_info, f, indent=2, ensure_ascii=False)
 
         if save_executor is not None:
-            sim_scene.save_future = save_executor.submit(_save)
+            with sim_scene.rec.span("export_submit"):
+                sim_scene.save_future = save_executor.submit(_save)
         else:
             _save()
         return sim_scene
@@ -761,23 +779,25 @@ def main(
                 "skipped": skipped_scenes, "total_time": total_time}
 
     executor = None
-    pending: Optional[Tuple[str, Any]] = None
+    pending: Optional[Tuple[str, S3DISSimScene]] = None
     if async_export:
         from concurrent.futures import ThreadPoolExecutor
 
-        executor = ThreadPoolExecutor(max_workers=1)
+        executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="export")
 
     successful_scenes, failed_scenes, skipped_scenes = [], [], []
 
     def drain() -> None:
-        """Wait for the export in flight; its failure fails its scene."""
+        """Wait for the export in flight (the scene's span
+        ``export_drain``); its failure fails its scene."""
         nonlocal pending, successful_scenes
         if pending is None:
             return
-        prev_name, prev_future = pending
+        prev_name, prev_scene = pending
         pending = None
         try:
-            prev_future.result()
+            with prev_scene.rec.span("export_drain"):
+                prev_scene.save_future.result()
         except Exception as e:
             failed_scenes.append((prev_name, str(e)))
             successful_scenes = [sc for sc in successful_scenes if sc[0] != prev_name]
@@ -820,7 +840,7 @@ def main(
                 )
                 successful_scenes.append((scene_name, sim_scene))
                 if getattr(sim_scene, "save_future", None) is not None:
-                    pending = (scene_name, sim_scene.save_future)
+                    pending = (scene_name, sim_scene)
                 print(f"[Batch] Scene {scene_name} succeeded.")
             except Exception as e:
                 failed_scenes.append((scene_name, str(e)))

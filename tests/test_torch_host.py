@@ -140,34 +140,6 @@ def test_native_library_in_the_ports_build_dir():
     np.testing.assert_array_equal(native.morton_order(pts), jax_native.morton_order(pts))
 
 
-def test_profiling_helpers_match_the_jax_package():
-    """``Timer`` and ``RateCounter`` behave as the JAX package's; ``trace``
-    names its block in a ``torch.profiler`` trace when enabled."""
-    import time
-
-    from ipcgen_tpu.utils import profiling as jax_profiling
-    from ipcgen_tpu_torch.utils import profiling
-
-    for mod in (jax_profiling, profiling):
-        timer = mod.Timer()
-        for _ in range(2):
-            with timer.span("a"):
-                time.sleep(0.01)
-        assert set(timer.spans) == {"a"} and timer.total() >= 0.02
-        rate = mod.RateCounter(unit="rays")
-        with pytest.raises(RuntimeError):
-            rate.stop(1)
-        rate.start()
-        rate.stop(1000)
-        assert rate.count == 1000 and rate.rate > 0
-    with profiling.trace("off"):
-        pass
-    with torch.profiler.profile() as prof:
-        with profiling.trace("scan_block", enabled=True):
-            torch.ones(4).sum()
-    assert "scan_block" in {e.key for e in prof.key_averages()}
-
-
 def test_device_probe_reports_no_card_on_the_cpu():
     """The probe runs a product on the card in a subprocess; without a card
     it returns None, and the bounded wait gives up."""

@@ -21,6 +21,7 @@ from ipcgen_tpu.semantic.annotations import S3DISAnnotationLoader  # noqa: E402
 from ipcgen_tpu_torch.containers.sim_scene import load_room_label_data  # noqa: E402
 from ipcgen_tpu_torch.ops.grid_nn import LabelGrid  # noqa: E402
 from ipcgen_tpu_torch.ops.knn import nearest_neighbor_indices  # noqa: E402
+from ipcgen_tpu_torch.utils.profiling import Recorder  # noqa: E402
 
 GOLDEN = Path(__file__).parent / "fixtures" / "golden_room"
 TIE_M2 = 1e-9
@@ -58,13 +59,14 @@ def test_label_grid_matches_jax(golden_cloud):
     refs = golden_cloud
     q = queries_for(refs)
     want = JaxLabelGrid(refs).query(q)
-    grid = LabelGrid(refs, device="cpu")
-    got = grid.query(torch.from_numpy(q))
+    rec = Recorder()
+    got = LabelGrid(refs, device="cpu").query(torch.from_numpy(q), rec=rec)
     assert got.dtype == np.int32 and got.shape == want.shape
     n_diff = assert_same_up_to_ties(q, refs, got, want)
     assert n_diff <= 0.001 * len(q)
     # All three levels ran.
-    assert grid.profile["l1_rows"] > 0 and grid.profile["residue_rows"] > 0
+    assert rec.profile["label_nn_l1_rows"] > 0 and rec.profile["label_nn_residue_rows"] > 0
+    assert rec.profile["label_nn_query_rows"] == len(q)
 
 
 def test_label_grid_is_exact(golden_cloud):
