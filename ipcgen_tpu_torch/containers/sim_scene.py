@@ -32,6 +32,7 @@ import json
 import os
 import pickle
 import threading
+import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
@@ -205,9 +206,11 @@ class LabelPrefetch:
     worker is re-raised by ``join``.  ``rec`` holds the thread's spans,
     ``label_load_bg`` around all of it with its CPU seconds as
     ``label_load_bg_cpu``; the scene absorbs it after the join.
+    ``start_ns`` is when it started (``time.time_ns``).
     """
 
     def __init__(self, s3dis_data_root, area, room, device="cuda"):
+        self.start_ns = time.time_ns()
         self.rec = Recorder()
         self.grid: Optional[LabelGrid] = None
         self._data = (None, None, None, None)
@@ -234,10 +237,14 @@ class LabelPrefetch:
 
     def join(self):
         """Block until loaded; returns (points, colors, sem, ins)."""
-        self._thread.join()
+        self.wait()
         if self._error is not None:
             raise self._error
         return self._data
+
+    def wait(self) -> None:
+        """Block until the worker has ended; an error stays for ``join``."""
+        self._thread.join()
 
 
 _prewarm_registry: Dict[Tuple[str, str, str, str], LabelPrefetch] = {}

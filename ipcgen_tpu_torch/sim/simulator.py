@@ -47,6 +47,7 @@ the ranks (``parallel/shard.py``).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import time
@@ -64,6 +65,7 @@ from ipcgen_tpu_torch.containers.sim_scene import (
     LabelPrefetch,
     S3DISSimScene,
     claim_prewarmed_labels,
+    prewarm_labels,
 )
 from ipcgen_tpu_torch.models.lidar_intrinsics import (
     DualAxisLidarIntrinsics,
@@ -303,7 +305,8 @@ class S3DISSimulator:
                      start_time: float) -> S3DISSimScene:
         """Wait for the scan, hand the room's recorder and its label
         transfer to a new ``S3DISSimScene``, and build the frames and
-        per-frame statistics."""
+        per-frame statistics.  The counter ``label_prefetch_lead`` holds the
+        seconds from the start of the room's label prefetch to the hand-off."""
         rec = self.rec
         total_points_per_scan = self.lidar_config.get_total_points_per_scan()
         room_volume = self.scene.room_bounds.get_volume()
@@ -312,6 +315,9 @@ class S3DISSimulator:
         with rec.span("d2h"):
             all_points, all_mask = batch.points_and_mask()
         with rec.span("label_handoff"):
+            if self._label_prefetch is not None:
+                rec.count("label_prefetch_lead",
+                          (time.time_ns() - self._label_prefetch.start_ns) / 1e9)
             sim_scene = S3DISSimScene(
                 scene_name=self.scene.scene_name,
                 simulation_config=self.config,
@@ -691,6 +697,28 @@ def _parse_area_room(area_room: str) -> Tuple[str, str]:
     return area_room, area_room
 
 
+def _scenes_to_run(available_scenes, output_base_dir: str):
+    """Skip and resume as the reference: a scene is skipped when both its
+    labeled PLY and its statistics txt exist, and a partly written one runs
+    again.  Returns (jobs, skipped names); a job is ``{"scene_path",
+    "scene_name", "area", "room"}``."""
+    jobs, skipped = [], []
+    for scene_path, scene_name, area_room in available_scenes:
+        scene_output_dir = Path(output_base_dir) / scene_name
+        ply_file = scene_output_dir / "combined_pointcloud_with_label.ply"
+        stats_file = scene_output_dir / "simulation_statistics.txt"
+        if ply_file.exists() and stats_file.exists():
+            print(f"[Batch] Scene {scene_name} already processed. Skipping.")
+            skipped.append(scene_name)
+            continue
+        elif ply_file.exists() or stats_file.exists():
+            print(f"[Batch] Scene {scene_name} partially processed. Re-running.")
+        area, room = _parse_area_room(area_room)
+        jobs.append({"scene_path": scene_path, "scene_name": scene_name,
+                     "area": area, "room": room})
+    return jobs, skipped
+
+
 def _print_batch_summary(
     n_total: int, successful, skipped, failed, total_time: float
 ) -> None:
@@ -703,6 +731,19 @@ def _print_batch_summary(
         print(f"[Batch] Average per scene: {total_time / n_total:.1f}s")
         rooms_per_hour = len(successful) / total_time * 3600 if total_time > 0 else 0
         print(f"[Batch] Throughput: {rooms_per_hour:.1f} rooms/hour")
+
+
+class _DrainingExecutor:
+    """``main``'s export queue over one export thread: ``submit`` first
+    waits for the export in flight (``drain``), so exports run one at a time
+    in room order, each while the next room loads and scans."""
+
+    def __init__(self, executor, drain):
+        self._executor, self._drain = executor, drain
+
+    def submit(self, fn):
+        self._drain()
+        return self._executor.submit(fn)
 
 
 def main(
@@ -726,16 +767,25 @@ def main(
     :594-726), each through ``run_single_scene_simulation`` on ``device``
     (None: the card; ``use_gpu=False`` asks for the CPU).
 
-    Skip and resume as the reference: a scene is skipped when both its
-    labeled PLY and its statistics txt exist, and a partly written one runs
-    again.  ``async_export=True`` overlaps each scene's export with the next
-    scene's device work on one background thread (depth-1 double buffering);
-    a scene whose export raises counts as failed.  ``room_dp=True`` with
-    more than one card puts the rooms round-robin on every card
-    (``run_scenes_device_parallel``, with the same skip rules); it raises
-    ``ValueError`` when ``device`` or ``use_gpu`` asks for the CPU.  With one
-    card or none it runs the sequential path, as the JAX package does with
-    one device.
+    The scenes to run are settled first, with the reference's skip and
+    resume rules (``_scenes_to_run``).  The loop looks one room ahead: at
+    the top of each room it waits for the previous room's label prefetch to
+    end (that room's span ``label_prefetch_wait``), then prewarms the labels
+    of this room and of the next (``containers.sim_scene.prewarm_labels``,
+    claimed by ``load_scene``), so at most two rooms' labels are prefetched
+    at once.  ``async_export=True`` runs the exports
+    one at a time, in room order, on one background thread; a room's export
+    runs while the next room loads, plans and scans, and ``main`` waits for
+    it (the drained scene's span ``export_drain``) only before the next
+    export is queued.  A scene whose load, scan or export raises counts as
+    failed, and only that scene.  The outputs are those of
+    ``async_export=False``.  When ``main`` returns, no prefetch it started is
+    left running or unclaimed.
+
+    ``room_dp=True`` with more than one card puts the rooms round-robin on
+    every card (``run_scenes_device_parallel``); it raises ``ValueError``
+    when ``device`` or ``use_gpu`` asks for the CPU.  With one card or none
+    it runs the sequential path, as the JAX package does with one device.
 
     Returns {"successful": [(name, sim_scene)], "failed": [(name, error)],
     "skipped": [name], "total_time": seconds}.
@@ -751,20 +801,7 @@ def main(
                 f"room_dp spreads the rooms over every card, but use_gpu={use_gpu} "
                 f"and device={device!r} ask for the CPU")
         start_time = time.time()
-        jobs, skipped_scenes = [], []
-        for scene_path, scene_name, area_room in available_scenes:
-            scene_output_dir = Path(output_base_dir) / scene_name
-            ply_file = scene_output_dir / "combined_pointcloud_with_label.ply"
-            stats_file = scene_output_dir / "simulation_statistics.txt"
-            if ply_file.exists() and stats_file.exists():
-                print(f"[Batch] Scene {scene_name} already processed. Skipping.")
-                skipped_scenes.append(scene_name)
-                continue
-            elif ply_file.exists() or stats_file.exists():
-                print(f"[Batch] Scene {scene_name} partially processed. Re-running.")
-            area, room = _parse_area_room(area_room)
-            jobs.append({"scene_path": scene_path, "scene_name": scene_name,
-                         "area": area, "room": room})
+        jobs, skipped_scenes = _scenes_to_run(available_scenes, output_base_dir)
         successful_scenes, failed_scenes = run_scenes_device_parallel(
             jobs, num_waypoints=num_waypoints, output_base_dir=output_base_dir,
             robot_height=robot_height, use_dense_lidar=use_dense_lidar,
@@ -778,14 +815,10 @@ def main(
         return {"successful": successful_scenes, "failed": failed_scenes,
                 "skipped": skipped_scenes, "total_time": total_time}
 
-    executor = None
+    start_time = time.time()
+    jobs, skipped_scenes = _scenes_to_run(available_scenes, output_base_dir)
+    successful_scenes, failed_scenes = [], []
     pending: Optional[Tuple[str, S3DISSimScene]] = None
-    if async_export:
-        from concurrent.futures import ThreadPoolExecutor
-
-        executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="export")
-
-    successful_scenes, failed_scenes, skipped_scenes = [], [], []
 
     def drain() -> None:
         """Wait for the export in flight (the scene's span
@@ -802,26 +835,50 @@ def main(
             failed_scenes.append((prev_name, str(e)))
             successful_scenes = [sc for sc in successful_scenes if sc[0] != prev_name]
 
-    start_time = time.time()
+    # The device load_scene claims the prewarmed labels on; where it cannot
+    # be resolved, every scene fails on it below and nothing is prewarmed.
     try:
-        for i, (scene_path, scene_name, area_room) in enumerate(available_scenes, 1):
-            print(f"[Batch] Processing scene {i}/{len(available_scenes)}: {scene_name}")
-            scene_output_dir = Path(output_base_dir) / scene_name
-            ply_file = scene_output_dir / "combined_pointcloud_with_label.ply"
-            stats_file = scene_output_dir / "simulation_statistics.txt"
-            if ply_file.exists() and stats_file.exists():
-                print(f"[Batch] Scene {scene_name} already processed. Skipping.")
-                skipped_scenes.append(scene_name)
-                continue
-            elif ply_file.exists() or stats_file.exists():
-                print(f"[Batch] Scene {scene_name} partially processed. Re-running.")
+        label_device = resolve_device(device, use_gpu)
+    except Exception:
+        label_device = None
+    prefetches: Dict[int, Optional[LabelPrefetch]] = {}  # job index -> its prewarm
+    recorders: Dict[int, Recorder] = {}  # job index -> its scene's, once it ran
+
+    def prewarm(k: int) -> None:
+        if label_device is not None and k < len(jobs) and k not in prefetches:
+            prefetches[k] = prewarm_labels(s3dis_data_root, jobs[k]["area"],
+                                           jobs[k]["room"], device=label_device)
+
+    def release(k: int) -> None:
+        """Drop room k's prewarm if no ``load_scene`` claimed it, and wait
+        for its thread (the span ``label_prefetch_wait`` of room k's scene)."""
+        pf, rec = prefetches.pop(k), recorders.pop(k, None)
+        if pf is None:
+            return
+        claim_prewarmed_labels(s3dis_data_root, jobs[k]["area"], jobs[k]["room"],
+                               device=label_device)
+        with rec.span("label_prefetch_wait") if rec else contextlib.nullcontext():
+            pf.wait()
+
+    executor = None
+    save_executor = None
+    if async_export:
+        from concurrent.futures import ThreadPoolExecutor
+
+        executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="export")
+        save_executor = _DrainingExecutor(executor, drain)
+
+    try:
+        for i, job in enumerate(jobs):
+            if i - 1 in prefetches:
+                release(i - 1)
+            prewarm(i)
+            prewarm(i + 1)
+            scene_name = job["scene_name"]
+            print(f"[Batch] Processing scene {i + 1}/{len(jobs)}: {scene_name}")
             try:
-                area, room = _parse_area_room(area_room)
-                # At most one export in flight: wait for the previous one
-                # before this scene's export can be submitted.
-                drain()
                 sim_scene = run_single_scene_simulation(
-                    scene_path=scene_path,
+                    scene_path=job["scene_path"],
                     scene_name=scene_name,
                     num_waypoints=num_waypoints,
                     output_base_dir=output_base_dir,
@@ -831,14 +888,15 @@ def main(
                     use_blk2go=use_blk2go,
                     use_auto_trajectory=use_auto_trajectory,
                     s3dis_data_root=s3dis_data_root,
-                    area=area,
-                    room=room,
+                    area=job["area"],
+                    room=job["room"],
                     save_visualizations=save_visualizations,
-                    save_executor=executor,
+                    save_executor=save_executor,
                     lidar_horizontal_res=lidar_horizontal_res,
                     device=device,
                 )
                 successful_scenes.append((scene_name, sim_scene))
+                recorders[i] = sim_scene.rec
                 if getattr(sim_scene, "save_future", None) is not None:
                     pending = (scene_name, sim_scene)
                 print(f"[Batch] Scene {scene_name} succeeded.")
@@ -849,6 +907,8 @@ def main(
     finally:
         if executor is not None:
             executor.shutdown(wait=True)
+        for k in list(prefetches):
+            release(k)
 
     total_time = time.time() - start_time
     _print_batch_summary(

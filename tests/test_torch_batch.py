@@ -10,6 +10,7 @@ and the files it writes, must be the same.
 """
 
 import shutil
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -271,3 +272,147 @@ def test_save_executor_attaches_the_export_future(tmp_path):
             **{k: v for k, v in SCAN.items()})
         scene.save_future.result()
     assert all((tmp_path / "exec" / f).is_file() for f in OUTPUTS)
+
+
+LOOKAHEAD_ROOMS = ("Area_1_office_1", "Area_1_office_2", "Area_1_office_3")
+
+
+def golden_rooms(root: Path, names=LOOKAHEAD_ROOMS):
+    """Box rooms of the golden room's width under ``names``, each with the
+    golden room's TLS scan and annotations linked under its own name."""
+    recon = make_recon(root, names, widths=(4.0,) * len(names))
+    data = root / "s3dis"
+    src = (GOLDEN / "Area_1" / "office_1").resolve()
+    for name in names:
+        room = name.removeprefix("Area_1_")
+        d = data / "Area_1" / room
+        d.mkdir(parents=True)
+        (d / f"{room}.txt").symlink_to(src / "office_1.txt")
+        (d / "Annotations").symlink_to(src / "Annotations", target_is_directory=True)
+    return recon, data
+
+
+def no_clock(stats: str):
+    """A statistics file's lines without its timing (simulation time, frames
+    per second)."""
+    clock = ("Simulation time", "Frames per second", "Frame rate")
+    return [ln for ln in stats.splitlines() if not ln.strip().startswith(clock)]
+
+
+def prefetch_threads():
+    return {t for t in threading.enumerate() if t.name == "label_prefetch"}
+
+
+def test_lookahead_writes_what_sync_writes_and_starts_labels_early(tmp_path):
+    """``main`` prewarms each room's labels one room ahead and drains each
+    export only before the next is queued; the files are those of the
+    synchronous export, every room still parses its own annotations, and
+    every room after the first started its labels before the room ahead of
+    it loaded."""
+    recon, data = golden_rooms(tmp_path)
+    kw = dict(reconstruction_dir=str(recon), s3dis_data_root=str(data), device="cpu",
+              **dict(SCAN, lidar_horizontal_res=64))
+    sync = psim.main(output_base_dir=str(tmp_path / "sync"), **kw)
+    asyn = psim.main(output_base_dir=str(tmp_path / "async"), async_export=True, **kw)
+    assert names(sync) == names(asyn) == (list(LOOKAHEAD_ROOMS), [], [])
+    for room in LOOKAHEAD_ROOMS:
+        for f in ("combined_pointcloud_with_label.ply", "combined_pointcloud.ply"):
+            assert (tmp_path / "sync" / room / f).read_bytes() == \
+                (tmp_path / "async" / room / f).read_bytes(), (room, f)
+        # The statistics files match but for the run's own clock.
+        for f in ("simulation_statistics.txt", "simulation_summary.txt",
+                  "trajectory_analysis.json"):
+            sync_f, async_f = (no_clock((tmp_path / d / room / f).read_text())
+                               for d in ("sync", "async"))
+            assert sync_f == async_f and len(sync_f) > 5, (room, f)
+    for res in (sync, asyn):
+        profiles = [scene.profile for _, scene in res["successful"]]
+        for prof in profiles:
+            assert {"load_scene", "label_bg_ann_parse", "label_prefetch_lead",
+                    "label_prefetch_wait"} <= set(prof)
+        for prof in profiles[1:]:
+            assert prof["label_prefetch_lead"] > prof["load_scene"], prof
+        # Each room's prefetch began before the room ahead of it loaded.
+        scenes = [scene for _, scene in res["successful"]]
+        for prev, scene in zip(scenes, scenes[1:]):
+            handoff = next(e for e in scene.events if e.name == "label_handoff")
+            began = handoff.start_ns - scene.profile["label_prefetch_lead"] * 1e9
+            assert began < next(e for e in prev.events if e.name == "load_scene").start_ns
+
+
+def _bad_mesh(recon, out, monkeypatch):
+    (recon / LOOKAHEAD_ROOMS[1] / "mesh_dense.ply").write_bytes(b"not a mesh\n")
+    return (LOOKAHEAD_ROOMS[0], LOOKAHEAD_ROOMS[2]), (), (LOOKAHEAD_ROOMS[1],)
+
+
+def _export_raises(recon, out, monkeypatch):
+    real = psim_scene.S3DISSimScene.save_results
+
+    def save_results(self, output_dir, *args, **kwargs):
+        if self.scene_name == LOOKAHEAD_ROOMS[1]:
+            raise OSError("disk full")
+        return real(self, output_dir, *args, **kwargs)
+
+    monkeypatch.setattr(psim_scene.S3DISSimScene, "save_results", save_results)
+    return (LOOKAHEAD_ROOMS[0], LOOKAHEAD_ROOMS[2]), (), (LOOKAHEAD_ROOMS[1],)
+
+
+def _skipped(recon, out, monkeypatch):
+    done = out / LOOKAHEAD_ROOMS[1]
+    done.mkdir(parents=True)
+    for f in ("combined_pointcloud_with_label.ply", "simulation_statistics.txt"):
+        (done / f).write_text("done\n")
+    return (LOOKAHEAD_ROOMS[0], LOOKAHEAD_ROOMS[2]), (LOOKAHEAD_ROOMS[1],), ()
+
+
+class Interrupted(BaseException):
+    pass
+
+
+def _interrupted(recon, out, monkeypatch):
+    real = psim.run_single_scene_simulation
+
+    def run(*args, **kwargs):
+        if kwargs["scene_name"] == LOOKAHEAD_ROOMS[1]:
+            raise Interrupted
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(psim, "run_single_scene_simulation", run)
+    return None
+
+
+@pytest.mark.parametrize("case", [_bad_mesh, _export_raises, _skipped, _interrupted],
+                         ids=["mesh_fails_after_prewarm", "export_raises", "skipped_room",
+                              "main_interrupted"])
+def test_lookahead_edges(tmp_path, monkeypatch, case):
+    """A room that fails fails only itself, a skipped room is never
+    prewarmed, and when ``main`` returns or raises it leaves no prewarm of
+    its own registered and no prefetch thread running."""
+    recon, data = golden_rooms(tmp_path)
+    out = tmp_path / "out"
+    want = case(recon, out, monkeypatch)  # (ok, skipped, failed), None if main raises
+    prewarmed = []
+    real_prewarm = psim.prewarm_labels
+
+    def prewarm(root, area, room, **kwargs):
+        prewarmed.append(f"{area}_{room}")
+        return real_prewarm(root, area, room, **kwargs)
+
+    monkeypatch.setattr(psim, "prewarm_labels", prewarm)
+    before = prefetch_threads()
+    kw = dict(reconstruction_dir=str(recon), output_base_dir=str(out),
+              s3dis_data_root=str(data), async_export=True, device="cpu",
+              **dict(SCAN, lidar_horizontal_res=64))
+    if want is None:
+        with pytest.raises(Interrupted):
+            psim.main(**kw)
+        assert set(prewarmed) == set(LOOKAHEAD_ROOMS)  # the third was prewarmed ahead
+    else:
+        res = psim.main(**kw)
+        ok, skipped, failed = want
+        assert names(res) == (list(ok), list(skipped), list(failed))
+        assert set(prewarmed) == set(ok) | set(failed)
+        if case is _export_raises:
+            assert res["failed"][0][1] == "disk full"
+    assert not [k for k in psim_scene._prewarm_registry if k[0] == str(data)]
+    assert prefetch_threads() <= before

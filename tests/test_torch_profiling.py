@@ -36,7 +36,7 @@ DIGESTS = {
         "e996b2a496c2f85bce842b702962ea925122e33969afde21c535e9af229d8170",
 }
 MAIN_SPANS = {"load_scene", "trajectory", "dispatch", "collect_scan", "export_submit",
-              "export_drain"}
+              "export_drain", "label_prefetch_wait"}
 COLLECT_CHILDREN = {"scan_exec", "d2h", "label_handoff", "frame_build", "statistics"}
 
 
@@ -168,11 +168,20 @@ def test_main_records_each_room_on_its_spans(tmp_path):
         children = [e for e in events if e.parent == "collect_scan"]
         assert {e.name for e in children} == COLLECT_CHILDREN
         assert covered_ns(children) >= 0.95 * (collect.end_ns - collect.start_ns)
-        # The main thread's spans cover it from the room's load to its drain.
+        # The main thread's spans cover it from the room's load to its
+        # export's submission; the drain and the wait for the prefetch come
+        # later, while the next room is under way.
         main = [e for e in events if e.thread == "MainThread" and e.parent is None]
         assert {e.name for e in main} == MAIN_SPANS
-        start = min(e.start_ns for e in main)
-        assert covered_ns(main) >= 0.95 * (by_name["export_drain"].end_ns - start)
+        start, submitted = min(e.start_ns for e in main), by_name["export_submit"].end_ns
+        owned = [e for e in main if e.end_ns <= submitted]
+        assert covered_ns(owned) >= 0.95 * (submitted - start)
+    # Over the batch, the rooms' main-thread spans cover main from the first
+    # load to the last drain.
+    main = [e for _, s in res["successful"] for e in s.events
+            if e.thread == "MainThread" and e.parent is None]
+    start, end = min(e.start_ns for e in main), max(e.end_ns for e in main)
+    assert covered_ns(main) >= 0.95 * (end - start)
     residue = {n: s.profile["label_nn_residue_rows"] for n, s in res["successful"]}
     assert residue[ROOMS[0]] == 0 and residue[ROOMS[1]] > 0
     assert res["successful"][0][1].profile["label_nn_residue"] == 0.0
@@ -188,10 +197,11 @@ def load_reader(name: str):
 
 ROOM_A = {"export_drain": 4.0, "collect_scan": 0.5, "label_load_bg": 3.0,
           "label_load_bg_cpu": 2.5, "label_nn_query_rows": 1000.0,
-          "label_nn_residue_rows": 10.0, "label_nn_residue": 1.0}
+          "label_nn_residue_rows": 10.0, "label_nn_residue": 1.0,
+          "label_prefetch_lead": 3.0}
 ROOM_B = {"collect_scan": 0.7, "label_load_bg": 2.0, "label_load_bg_cpu": 0.5,
           "label_nn_query_rows": 3000.0, "label_nn_residue_rows": 0.0,
-          "label_nn_residue": 0.0}
+          "label_nn_residue": 0.0, "label_prefetch_lead": 0.5}
 NO_ROWS = {"collect_scan": 0.3}  # a room without labels: no query, no drain
 OLD = {"frame_build": 0.3, "label_load_bg": 2.0}  # a program without these spans
 
@@ -208,6 +218,8 @@ OLD = {"frame_build": 0.3, "label_load_bg": 2.0}  # a program without these span
     ("label_residue_s.sim", [ROOM_A, ROOM_B, NO_ROWS], 1.0 / 3),
     ("label_residue_s.sim", [OLD], None),
     ("label_residue_s.sim", [], None),
+    ("label_prefetch_lead_s.sim", [ROOM_A, ROOM_B, NO_ROWS], 3.5 / 3),
+    ("label_prefetch_lead_s.sim", [OLD], None),
 ])
 def test_span_metric_readers(name, rooms, want):
     got = load_reader(name)({"rooms": rooms, "scan": {}})
