@@ -192,8 +192,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, control: boo
             host0 = host_reading()
             t0 = time.time()
             k = 0
+            call_s, call_rooms = [], []
             while True:
+                c0, rooms0 = time.time(), runner.done()
                 runner.call(k)
+                call_s.append(time.time() - c0)
+                call_rooms.append(runner.done() - rooms0)
                 k += 1
                 if time.time() - t0 >= seconds:
                     break
@@ -208,14 +212,21 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, control: boo
         for room in trace_rec["rooms"]:
             for name, v in room.items():
                 spans[name] = spans.get(name, 0.0) + v / len(trace_rec["rooms"])
+        # The host line, diagnostics and never a metric: each call's wall
+        # seconds and rooms show whether a spread sits at call boundaries;
+        # ``check_s`` and ``run_s`` (set by ``main``) time the check and
+        # the whole run, which grow with the rooms in the window.
         beside = {"load1": [host0.get("load1"), host1.get("load1")],
                   "mhz": [host0.get("mhz"), host1.get("mhz")],
                   "cpu_s_per_s": (host1["cpu_s"] - host0["cpu_s"]) / (t1 - t0),
-                  "calls": k, "span_means_s": spans}
+                  "calls": k, "call_s": call_s, "call_rooms": call_rooms,
+                  "span_means_s": spans}
         runner.release()
         if cuda:
             torch.cuda.empty_cache()
+        c0 = time.time()
         checks = runner.check()
+        beside["check_s"] = time.time() - c0
         control_checks = runner.check(control=True) if control else None
         correct = all(c["value"] <= c["limit"] for c in checks.values())
         result = {"correct": correct, "attempted": runner.attempted,
@@ -266,7 +277,9 @@ def main(argv=None) -> int:
     except RunError as e:
         print(f"benchmark: {e}", file=sys.stderr)
         return 3
-    print("host " + json.dumps(result.pop("host")), file=sys.stderr)
+    host = result.pop("host")
+    host["run_s"] = time.time() - T_PROCESS
+    print("host " + json.dumps(host), file=sys.stderr)
     for name, c in result["checks"].items():
         print(f"check {name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     sys.stderr.flush()

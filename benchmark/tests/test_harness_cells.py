@@ -17,8 +17,7 @@ from benchmark.tests.conftest import with_pipeline
 
 SPEC = with_pipeline(json.loads((run.ROOT / "BENCHMARK.json").read_text()))
 CELLS = [c["name"] for c in SPEC["workloads"]]
-SIM = next(c["name"] for c in SPEC["workloads"] if c["traffic"] == "office-batch4")
-PIPELINE = next(c["name"] for c in SPEC["workloads"] if c["traffic"] == "office-serial")
+SIM, PIPELINE = "sim.office.blk2go", "pipeline.office.blk2go"
 
 
 def tiny_run(tiny_bench, workload, seed=2**31 + 3, **kw):
@@ -34,6 +33,13 @@ def test_cell_runs_correct_and_its_control_fails(tiny_bench, workload):
     assert res["attempted"] >= 1 and res["failed"] == 0
     assert set(res["metrics"]) >= {"setup_s"} and len(res["metrics"]) == 2
     assert list(res)[-1] == "checks"
+    # The host line's diagnostics: one entry per call, whose rooms add up
+    # to the rooms done, and the check's seconds.
+    host = res["host"]
+    assert host["calls"] == len(host["call_s"]) == len(host["call_rooms"]) >= 1
+    assert all(s > 0 for s in host["call_s"])
+    assert sum(host["call_rooms"]) == res["attempted"] - res["failed"]
+    assert host["check_s"] > 0
     control = res["control_checks"]
     assert any(c["value"] > c["limit"] for c in control.values()), control
 
