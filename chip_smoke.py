@@ -186,6 +186,14 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    timed; the instrumented 1-NN equal to the library call on every row, its
    distances on 100 k sampled queries equal to a float64 cKDTree's within
    1e-6 m, ``LabelGrid`` at the library's distances.
+20. the exact 1-NN kernel (``phase_nn_exact``, ``csrc/nn_exact.cu``) at the
+   label residue's shapes, 20,000 and 48,000 queries (the BLK2GO and dense
+   32-line rooms' residue rows) against 1,300,000 references: indices equal
+   to its plain version's on every row, both timed with CUDA events (the
+   kernel warm, the L2 flushed before each launch), the bound
+   ``NN_OPS_PER_PAIR`` issue slots a pair; and the kernel alone at 500,000
+   x 2,600,000 (a room at S3DIS's density, where a fifth of the hits would
+   reach the residue).
 
 Each phase's seconds are logged.  The launch checks of the batch, the
 pipeline, the release gate and the room-parallel driver follow the kernel
@@ -205,8 +213,10 @@ Every sim-stage call passes ``save_visualizations=False``: the card's host
 has no matplotlib, and a figure asked for there raises.
 The second-to-last line is the kernels' JSON record (each kernel's
 ``launches`` summed over the paths that ran it, ``launches_by_path`` each
-path's own count; the bench's paths are ``bench_<workload>_<kernel>``), the
-last line
+path's own count; the bench's paths are ``bench_<workload>_<kernel>``;
+``nn_exact_kernel`` also gives each sim path's residue rows, the launches
+of its own check phase as ``check_calls``, and the rows where it differed
+from its plain version there as ``rows_off``), the last line
 ``{"ok": true, "device": {...}}``.  Needs ``torch.cuda.is_available()``.
 """
 
@@ -2446,6 +2456,75 @@ def phase_label_probe(device, card: str) -> dict:
     return report
 
 
+# The exact 1-NN: 1,300,000 TLS references a room, and the residue rows of a
+# BLK2GO room (0.81 % of 2.5 M hits) and of a dense 32-line room (0.99 % of
+# 5 M); each pair costs 3 differences, 3 products and 2 sums that cannot
+# fuse, one fp32 issue slot each.
+NN_REFS = 1_300_000
+NN_SHAPES = {"blk2go": 20_000, "dense32": 48_000}
+NN_AT_DENSITY = (500_000, 2_600_000)
+NN_OPS_PER_PAIR = 8
+
+
+def time_cold_ms(fn, reps: int) -> float:
+    """Mean CUDA-event milliseconds of ``fn`` after a warm-up, the L2 cache
+    flushed (256 MB written) before each call."""
+    import torch
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def phase_nn_exact(device, card: str) -> dict:
+    """The exact 1-NN kernel at the label residue's shapes against its plain
+    version: the same indices on every row, the times and the bound."""
+    import torch
+
+    from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.ops.knn import nearest_neighbor_plain
+
+    def points(n: int, seed: int):
+        p = np.random.default_rng(seed).uniform([0, 0, 0], [6, 5, 2.5], (n, 3))
+        return torch.from_numpy(p.astype(np.float32)).to(device)
+
+    refs = points(NN_REFS, 21)
+    out = {"refs": NN_REFS}
+    for k, (name, n) in enumerate(NN_SHAPES.items()):
+        q = points(n, 22 + k)
+        before = _kernels.LAUNCHES["nn_exact"]
+        got = _kernels.nn_exact_cuda(q, refs)
+        require(_kernels.LAUNCHES["nn_exact"] == before + 1, "nn_exact: one launch a call")
+        want = nearest_neighbor_plain(q, refs)
+        off = int((got != want).sum())
+        require(off == 0, f"nn_exact at {name}: {off} of {n} rows differ from the plain version")
+        res = {"queries": n, "rows_off": off,
+               "ms": time_cold_ms(lambda: _kernels.nn_exact_cuda(q, refs), 5),
+               "plain_ms": time_cold_ms(lambda: nearest_neighbor_plain(q, refs), 1),
+               **bound(nbytes(q, refs) + 8 * n, float(n) * NN_REFS * NN_OPS_PER_PAIR,
+                       fp32_issue_rate())}
+        res["x_bound"] = res["ms"] / res["bound_ms"]
+        out[name] = res
+    n, m = NN_AT_DENSITY
+    q, r = points(n, 31), points(m, 32)
+    out["at_density"] = {"queries": n, "refs": m,
+                         "ms": time_cold_ms(lambda: _kernels.nn_exact_cuda(q, r), 2),
+                         **bound(nbytes(q, r) + 8 * n, float(n) * m * NN_OPS_PER_PAIR,
+                                 fp32_issue_rate())}
+    log(f"[nn-exact] on {card}: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2516,6 +2595,10 @@ def main() -> int:
     for k in _kernels.LAUNCHES:
         _kernels.LAUNCHES[k] = 0
     label_probe = phase("label_probe", phase_label_probe, device, card)
+    for k in _kernels.LAUNCHES:
+        _kernels.LAUNCHES[k] = 0
+    nn = phase("nn_exact", phase_nn_exact, device, card)
+    nn_check_calls = _kernels.LAUNCHES["nn_exact"]
     log(f"[summary] phase seconds {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     log(f"[summary] batch {json.dumps({k: v for k, v in batch.items() if k != 'rooms'})}; "
         f"preprocess warm spans {json.dumps(preprocess['runs'][-1]['spans'])}")
@@ -2547,7 +2630,17 @@ def main() -> int:
                    **bench_res["launches"])
 
     def path_launches(key):
-        return {k: v[key] for k, v in by_path.items() if v[key]}
+        return {k: v[key] for k, v in by_path.items() if v.get(key)}
+
+    # A path whose rooms left rows to the label grid's residue searched them
+    # with the 1-NN kernel.
+    residue_rows = {f"sim_{k}": int(r["stages"].get("label_nn_residue_rows", 0))
+                    for k, r in runs.items()}
+    residue_rows["batch"] = sum(int(r["stages"].get("label_nn_residue_rows", 0))
+                                for r in batch["rooms"].values())
+    for path, rows in residue_rows.items():
+        require(rows == 0 or by_path[path].get("nn_exact", 0) >= 1,
+                f"{path}: {rows} residue rows but no nn_exact launch: {by_path[path]}")
 
     launches = sum(path_launches("raycast_pairs").values())
     prepass_launches = sum(path_launches("raycast_pairs_prepass").values())
@@ -2673,6 +2766,21 @@ def main() -> int:
             entry["also_replaces"] = "scripts/kernel_probe.py:32"
             entry["schedule"] = probe["schedule"]
         record["kernels"].append(entry)
+    record["kernels"].append({
+        "name": "nn_exact_kernel", "route": "cuda", "source": "ipcgen_tpu_torch/csrc/nn_exact.cu",
+        "replaces": None,
+        "replaces_note": "no Pallas kernel: the JAX package leaves its exact 1-NN to XLA "
+                         "(ipcgen_tpu/ops/knn.py:140)",
+        "launches": sum(path_launches("nn_exact").values()),
+        "launches_by_path": path_launches("nn_exact"),
+        "residue_rows_by_path": residue_rows,
+        "check_calls": nn_check_calls,
+        "rows_off": sum(nn[k]["rows_off"] for k in NN_SHAPES),
+        "ms": nn["blk2go"]["ms"], "plain_ms": nn["blk2go"]["plain_ms"],
+        **{k: nn["blk2go"][k] for k in bound_keys}, "library_ms": None,
+        "bound_set_by": f"queries x references x {NN_OPS_PER_PAIR} fp32 issue slots a pair",
+        "shapes": nn,
+    })
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -36,13 +37,14 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-# Source name -> its own nvcc flags.  The culled raycast must round every
-# product and sum on its own (bit-exact against the oracle): no FMA
-# contraction.
+# Source name -> its own nvcc flags.  The culled raycast and the exact 1-NN
+# must round every product and sum on their own (bit-exact against the
+# oracle and the plain version): no FMA contraction.
 SOURCES = {
     "raycast_pairs": [],
     "raycast_culled": ["-fmad=false"],
     "raycast_probe": [],
+    "nn_exact": ["-fmad=false"],
 }
 
 _C_PTR, _C_INT, _C_FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -61,6 +63,7 @@ KERNELS = {
                            [_C_PTR] * 7 + [_C_INT] * 2 + [_C_FLOAT, _C_PTR]),
     "raycast_probe_flat": ("raycast_probe",
                            [_C_PTR] * 7 + [_C_INT] * 2 + [_C_FLOAT, _C_PTR]),
+    "nn_exact": ("nn_exact", [_C_PTR] * 3 + [_C_INT] * 4 + [_C_PTR]),
 }
 
 # Launch count per kernel, and of the prepass's counting launch under its own
@@ -71,6 +74,9 @@ LAUNCHES = {name: 0 for name in (*KERNELS, "raycast_pairs_prepass_count")}
 BUILD_SECONDS = {}
 
 _LIBS = {}
+# The label threads launch the 1-NN kernel beside main's raycasts: one build
+# at a time.
+_BUILD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -96,6 +102,13 @@ def _library_path(name: str) -> Path:
 def build() -> dict:
     """Compile every kernel source not built yet (all at once, one nvcc
     each), load each library once, and return them by kernel name."""
+    if len(_LIBS) == len(SOURCES):
+        return _LIBS
+    with _BUILD_LOCK:
+        return _build_locked()
+
+
+def _build_locked() -> dict:
     if len(_LIBS) == len(SOURCES):
         return _LIBS
     nvcc = _nvcc()
@@ -516,3 +529,59 @@ def raycast_probe_flat_cuda(f, pair_tiles, pair_blocks, n_tiles: int, trif,
             pair_blocks.data_ptr(), trif.data_ptr(), best.data_ptr(), t.data_ptr(),
             slot.data_ptr(), int(n_tiles), pair_tiles.shape[0], float(t_init), lib=lib)
     return t, slot
+
+
+# The exact 1-NN's tiles (csrc/nn_exact.cu kQueryTile, kRefTile) and the
+# blocks its grid aims for on each streaming multiprocessor: 4 resident over
+# 4 waves.
+NN_QUERY_TILE = 1024
+NN_REF_TILE = 1024
+NN_BLOCKS_PER_SM = 16
+# The merge keys' start: (float bits of +inf << 32) | index 0.
+_NN_NO_MATCH = 0x7F800000 << 32
+
+
+def nn_exact_schedule(n: int, m: int, sms: int):
+    """(chunk, splits) of the exact 1-NN's grid for n queries and m
+    references on a card of ``sms`` multiprocessors: the reference range
+    cut into ``splits`` chunks of ``chunk`` references (whole stages, no
+    chunk empty), so that the query tiles times the splits make about
+    ``NN_BLOCKS_PER_SM`` blocks a multiprocessor."""
+    q_tiles = -(-n // NN_QUERY_TILE)
+    r_tiles = -(-m // NN_REF_TILE)
+    splits = min(r_tiles, 65535, max(1, -(-NN_BLOCKS_PER_SM * sms // q_tiles)))
+    chunk = -(-r_tiles // splits) * NN_REF_TILE
+    return chunk, -(-m // chunk)
+
+
+def nn_exact_cuda(queries, refs):
+    """Launch ``nn_exact_kernel`` (csrc/nn_exact.cu): the exact 1-NN of
+    every query among ``refs``, ties to the smallest index.
+
+    queries (N, 3) and refs (M, 3) float32 on one CUDA device, refs 16-byte
+    aligned (cp.async copies), 0 < M < 2**31.  Allocates the (N,) merge keys
+    and returns (N,) int64 indices into ``refs`` on the device, with no host
+    read; N = 0 launches nothing.
+    """
+    device = queries.device
+    if device.type != "cuda":
+        raise ValueError(f"nn_exact_cuda: queries is on {device}, not CUDA")
+    _check(queries, "queries", torch.float32, 2, device)
+    _check(refs, "refs", torch.float32, 2, device)
+    n, m = queries.shape[0], refs.shape[0]
+    if queries.shape != (n, 3) or refs.shape != (m, 3):
+        raise ValueError(f"queries/refs: shapes {tuple(queries.shape)}, "
+                         f"{tuple(refs.shape)}, expected (N, 3) and (M, 3)")
+    if m == 0:
+        raise ValueError("nn_exact_cuda: empty reference set")
+    if m >= 2**31 or n >= 2**31:
+        raise ValueError(f"nn_exact_cuda: {n} queries, {m} references; at most 2**31 - 1")
+    if refs.data_ptr() % 16:
+        raise ValueError("refs: must be 16-byte aligned (cp.async copies)")
+    keys = torch.full((n,), _NN_NO_MATCH, dtype=torch.int64, device=device)
+    if n:
+        chunk, splits = nn_exact_schedule(
+            n, m, torch.cuda.get_device_properties(device).multi_processor_count)
+        _launch("nn_exact", device, queries.data_ptr(), refs.data_ptr(), keys.data_ptr(),
+                n, m, chunk, splits)
+    return keys & 0xFFFFFFFF

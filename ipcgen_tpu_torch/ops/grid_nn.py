@@ -16,7 +16,8 @@ the 2x2x2 cells nearest to it.  The slab grid stores each bucket as a dense
 Slab grid: an answer is accepted only when provably nearest, found within
 the query's margin to the searched window with no visited bucket truncated.
 Level 0 uses cell h, level 1 cell 4h with a wider cap, and the residue goes
-to the exact 1-NN (``ops/knn.py``), so the returned index is always the true
+to the exact 1-NN (``ops/knn.py``, on the card its kernel) against the grid's
+own device copy of the references, so the returned index is always the true
 nearest neighbour.
 
 CSR 1-NN: the same acceptance at the fixed radius h/2, a retry at doubled
@@ -38,8 +39,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ipcgen_tpu_torch.ops.knn import nearest_neighbor_indices, select_smallest
-from ipcgen_tpu_torch.utils.device import device_or_card
+from ipcgen_tpu_torch.ops.knn import (
+    nearest_neighbor_indices,
+    nearest_neighbor_tensor,
+    select_smallest,
+)
+from ipcgen_tpu_torch.utils.device import device_or_card, sync
 from ipcgen_tpu_torch.utils.profiling import Recorder
 
 # Spatial-hash primes; the hash wraps in uint32 identically on host and device.
@@ -171,7 +176,8 @@ class LabelGrid:
 
     Built once per room (in the label prefetch thread) and queried per
     transfer.  Levels: L0 cell h, cap 24; L1 cell 4h, cap 384; residue: the
-    exact 1-NN.  Tables live on ``device``.
+    exact 1-NN against ``refs_dev``.  Tables and ``refs_dev``, one copy of
+    the references, live on ``device``.
     """
 
     Q_BLOCK = 32768
@@ -180,7 +186,6 @@ class LabelGrid:
     def __init__(self, refs: np.ndarray, cap0: int = 24, cap1: int = 384,
                  device="cuda"):
         refs = np.asarray(refs, dtype=np.float32)
-        self.refs = refs
         self.n_refs = len(refs)
         self.device = torch.device(device)
         if self.n_refs == 0:
@@ -201,6 +206,7 @@ class LabelGrid:
                 dims=torch.from_numpy(dims.astype(np.int32)).to(self.device),
                 cap=int(cap),
             ))
+        self.refs_dev = torch.from_numpy(np.ascontiguousarray(refs)).to(self.device)
 
     def _run_level(self, q: torch.Tensor, lvl: int, q_block: int) -> torch.Tensor:
         p = self._lvl[lvl]
@@ -212,7 +218,7 @@ class LabelGrid:
         return torch.cat(out)
 
     def query(self, queries, rec: Optional[Recorder] = None) -> np.ndarray:
-        """Exact 1-NN indices into ``refs`` for (N, 3) queries (tensor on any
+        """Exact 1-NN indices into the references for (N, 3) queries (tensor on any
         device, or array); returns (N,) int32 numpy.
 
         ``rec`` (a ``Recorder``) takes the seconds of each level,
@@ -242,9 +248,8 @@ class LabelGrid:
         rec.count("label_nn_residue_rows", still.numel())
         if still.numel():
             with rec.span("label_nn_residue"):
-                idx[still] = torch.from_numpy(
-                    nearest_neighbor_indices(q[still], self.refs)
-                ).to(self.device)
+                idx[still] = nearest_neighbor_tensor(q[still], self.refs_dev).to(idx.dtype)
+                sync(self.device)  # the span times the search, not its launch
         else:
             rec.count("label_nn_residue", 0.0)
         return idx.cpu().numpy().astype(np.int32)

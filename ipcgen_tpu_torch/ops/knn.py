@@ -1,7 +1,10 @@
 """Exact nearest-neighbour searches (port of ``ipcgen_tpu/ops/knn.py``).
 
-- ``nearest_neighbor_indices`` (:140-180): chunked exact 1-NN, the label
-  grid's residue path and the annotation colour fallback;
+- ``nearest_neighbor_indices`` (:140-180): exact 1-NN, the label grid's
+  residue path and the annotation colour fallback; on the card the
+  hand-written kernel ``csrc/nn_exact.cu`` (``nearest_neighbor_tensor``),
+  on the CPU its plain version, the chunked loop
+  (``nearest_neighbor_plain``);
 - ``knn`` (:225-260): exact k-NN, the self-join of the outlier means and
   the PCA normals below the grid path's size;
 - ``exact_pair_budget`` and ``nearest_neighbor_auto`` (:109-137): the
@@ -46,23 +49,15 @@ def select_smallest(d2: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     return vals, key & 0xFFFFFFFF
 
 
-def nearest_neighbor_indices(queries, refs, device=None, q_block: int = 1024,
-                             max_elems: int = 1 << 24) -> np.ndarray:
-    """Index of the nearest reference point for every query point.
-
-    ``queries`` (N, 3) and ``refs`` (M, 3) are tensors or arrays; the search
-    runs on ``device`` (default: the queries' device, CPU for arrays).
-    Returns (N,) int32 numpy indices into ``refs``.
-    """
-    if device is None:
-        device = queries.device if isinstance(queries, torch.Tensor) else "cpu"
-    q = torch.as_tensor(queries, dtype=torch.float32).to(device)
-    r = torch.as_tensor(refs, dtype=torch.float32).to(device)
+def nearest_neighbor_plain(q: torch.Tensor, r: torch.Tensor, q_block: int = 1024,
+                           max_elems: int = 1 << 24) -> torch.Tensor:
+    """The plain version of the exact 1-NN kernel: (N,) int64 indices into
+    ``r`` (M, 3) of the nearest reference to each row of ``q`` (N, 3), both
+    float32 on one device, N > 0 and M > 0.  Blocks of ``q_block`` queries
+    against chunks of references, (B, chunk) squared distances (dx^2 +
+    dy^2) + dz^2 at most ``max_elems // 3`` at a time; ties to the smallest
+    index."""
     n, m = q.shape[0], r.shape[0]
-    if n == 0:
-        return np.zeros((0,), np.int32)
-    if m == 0:
-        raise ValueError("nearest_neighbor_indices: empty reference set.")
     r_block = max(1, max_elems // (3 * q_block))
     out = torch.empty(n, dtype=torch.int64, device=q.device)
     for s in range(0, n, q_block):
@@ -70,13 +65,58 @@ def nearest_neighbor_indices(queries, refs, device=None, q_block: int = 1024,
         best_d = torch.full((qb.shape[0],), float("inf"), device=q.device)
         best_i = torch.zeros(qb.shape[0], dtype=torch.int64, device=q.device)
         for c in range(0, m, r_block):
-            d2 = ((qb[:, None, :] - r[None, c:c + r_block, :]) ** 2).sum(-1)
+            rc = r[c:c + r_block]
+            d2 = (qb[:, 0:1] - rc[None, :, 0]) ** 2
+            d2 = d2 + (qb[:, 1:2] - rc[None, :, 1]) ** 2
+            d2 = d2 + (qb[:, 2:3] - rc[None, :, 2]) ** 2
             dmin, arg = torch.min(d2, dim=1)
             take = dmin < best_d
             best_d = torch.where(take, dmin, best_d)
             best_i = torch.where(take, arg + c, best_i)
         out[s:s + q_block] = best_i
-    return out.cpu().numpy().astype(np.int32)
+    return out
+
+
+def nearest_neighbor_tensor(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Exact 1-NN on the tensors' device: (N,) int64 indices, on that
+    device, into ``r`` (M, 3) of the nearest reference to each row of ``q``
+    (N, 3), ties to the smallest index.  CPU tensors take the plain version;
+    CUDA tensors the kernel (``_kernels.nn_exact_cuda``), which raises for
+    what it does not take.  An empty reference set raises."""
+    q = q.to(torch.float32).contiguous()
+    r = r.to(torch.float32).contiguous()
+    if q.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.int64, device=q.device)
+    if r.shape[0] == 0:
+        raise ValueError("nearest_neighbor_indices: empty reference set.")
+    if q.device.type == "cpu":
+        return nearest_neighbor_plain(q, r)
+    from ipcgen_tpu_torch.ops import _kernels
+
+    if r.data_ptr() % 16:  # a row slice: the kernel's cp.async copies need 16 bytes
+        r = r.clone()
+    return _kernels.nn_exact_cuda(q, r)
+
+
+def nearest_neighbor_indices(queries, refs, device=None, q_block: int = 1024,
+                             max_elems: int = 1 << 24) -> np.ndarray:
+    """Index of the nearest reference point for every query point.
+
+    ``queries`` (N, 3) and ``refs`` (M, 3) are tensors or arrays; the search
+    runs on ``device`` (default: the queries' device, CPU for arrays) through
+    ``nearest_neighbor_tensor``; on the CPU ``q_block`` and ``max_elems``
+    size the plain version's chunks.  Returns (N,) int32 numpy indices into
+    ``refs``.
+    """
+    if device is None:
+        device = queries.device if isinstance(queries, torch.Tensor) else "cpu"
+    q = torch.as_tensor(queries, dtype=torch.float32).to(device)
+    r = torch.as_tensor(refs, dtype=torch.float32).to(device)
+    if q.device.type == "cpu" and q.shape[0] and r.shape[0]:
+        idx = nearest_neighbor_plain(q, r, q_block, max_elems)
+    else:
+        idx = nearest_neighbor_tensor(q, r)
+    return idx.cpu().numpy().astype(np.int32)
 
 
 def exact_pair_budget(*, device=None) -> float:
