@@ -258,9 +258,8 @@ FLOPS_PER_TEST = {"pairs": 50, "bf16": 150}
 # and v's numerator, 14; past v, t's numerator, 5; past t, the three
 # products by 1 / det and u + v, 4, and the IEEE divide: 10 SASS
 # instructions on its fast path (MUFU.RCP, FCHK, five FFMAs, the branch to
-# the slow path and its BSSY / BSYNC; `python -m
-# ipcgen_tpu_torch.culled_compare --sass DIR` writes the SASS of
-# __fdiv_rn(1.0f, x) built as the culled source is).
+# the slow path and its BSSY / BSYNC: the SASS of __fdiv_rn(1.0f, x) built
+# as the culled source is).
 FP32_LANES_PER_SM = 128
 SLAB_OPS = 25
 SLAB_OPS_TWO_LEVEL = 33
@@ -1000,9 +999,9 @@ def run_scene(mesh_path: Path, scene_name: str, out_base: Path, backend: str,
 
 def auto_launches(n: int) -> dict:
     """The launches of ``n`` scans on the "auto" backend
-    (``sim.simulator.port_backend``): a prepass and a walk a scan on the pair
-    kernel, one culled launch on the culled kernel."""
-    from ipcgen_tpu_torch.sim.simulator import port_backend
+    (``ops.raycast_backends.port_backend``): a prepass and a walk a scan on
+    the pair kernel, one culled launch on the culled kernel."""
+    from ipcgen_tpu_torch.ops.raycast_backends import port_backend
 
     pairs = port_backend("auto") == "pairs"
     return {"raycast_pairs": n * pairs, "raycast_pairs_prepass": n * pairs,

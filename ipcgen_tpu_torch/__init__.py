@@ -10,8 +10,8 @@ its layout so each module's counterpart is easy to find:
 - ``models``     LiDAR intrinsics profiles and beam patterns;
 - ``ops``        scene asset, geometry, raycast (the brute oracle, the
                  candidate-pair path and the culled path, whose inner loops
-                 are the CUDA kernels in ``csrc/``), occupancy, exact and
-                 grid 1-NN;
+                 are the CUDA kernels in ``csrc/``; ``raycast_backends``
+                 names and selects them), occupancy, exact and grid 1-NN;
 - ``sim``        the fused multi-waypoint scan, engines and the simulator;
 - ``containers``, ``io``, ``semantic``, ``trajectory``, ``config``
                  the host layer: copies of the JAX package's modules of the

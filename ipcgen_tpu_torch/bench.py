@@ -5,7 +5,7 @@
 
 Workloads, each on the pair kernel (``"pairs"``) and the culled kernel
 (``"culled"``) side by side, the box scan also on ``"auto"`` (the config's
-default, ``sim.simulator.port_backend``):
+default, ``ops.raycast_backends.port_backend``):
 
 - box: the dense 32-line profile (128,000 rays a scan) over 20 waypoints of
   ``synthetic_room(200_000)`` (159,744 triangles), ``scan_waypoints(...,
@@ -186,7 +186,7 @@ def _measure(backend: str, workload, reps: int = 3, queue: int = 4, *,
     """``scan_waypoints(..., outputs="unordered")`` of ``workload`` (asset,
     intrinsics, poses, triangles) on ``backend`` (a JAX name such as
     "auto", or a port name); every call draws from a generator seeded 0."""
-    from ipcgen_tpu_torch.parallel.shard import resolve_backend
+    from ipcgen_tpu_torch.ops.raycast_backends import resolve_backend
     from ipcgen_tpu_torch.sim.scan import scan_waypoints
 
     asset, intr, poses, n_tris = workload
@@ -645,7 +645,7 @@ def run(device=None, *, sizes: Sizes = Sizes(), reps: int = 3, queue: int = 4,
     result, the compact line).  Writes ``json_out`` when given, and no
     other file."""
     from ipcgen_tpu_torch.ops import _kernels
-    from ipcgen_tpu_torch.sim.simulator import port_backend
+    from ipcgen_tpu_torch.ops.raycast_backends import port_backend
     from ipcgen_tpu_torch.utils.device import card_line, device_or_card
 
     device = device_or_card(device)

@@ -93,9 +93,8 @@
 // raycast_culled_kernel<true> is the counting instantiation: the same walk
 // plus counters (warp visits of leaf blocks, the ray-triangle tests of active
 // lanes, the tests past each prescreen stage, warp visits of supers),
-// launched through raycast_culled_count_launch by chip_smoke.py, the card
-// tests and culled_compare.py only; the main path launches
-// raycast_culled_kernel<false>.
+// launched through raycast_culled_count_launch by chip_smoke.py and the
+// card tests only; the main path launches raycast_culled_kernel<false>.
 
 #include <cuda_runtime.h>
 #include <math.h>

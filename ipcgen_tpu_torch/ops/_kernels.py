@@ -221,11 +221,9 @@ def raycast_pairs_prepass_count_cuda(origins, dirs, block_lo, block_hi, group_lo
 
 
 def _prepass(origins, dirs, block_lo, block_hi, group_lo, group_hi, group: int,
-             t_max: float, n_sub: int, counting: bool, launch=None):
-    """The two passes, each through ``launch(*args)``: a call of a
-    ``raycast_pairs_prepass_launch`` with its C arguments but the stream.
-    The default is the port's, counted once per call in ``LAUNCHES``; another
-    build of the source (``prepass_compare``) passes its own, uncounted."""
+             t_max: float, n_sub: int, counting: bool):
+    """The two passes of ``raycast_pairs_prepass_launch``, counted once per
+    call in ``LAUNCHES``."""
     device = origins.device
     if device.type != "cuda":
         raise ValueError(f"raycast_pairs_prepass_cuda: origins is on {device}, not CUDA")
@@ -254,14 +252,11 @@ def _prepass(origins, dirs, block_lo, block_hi, group_lo, group_hi, group: int,
     rows = torch.empty(n_tiles * (-(-nb // 16) * 4), **i32)  # subtile bytes per block
     counts = torch.zeros(len(PREPASS_COUNTS), dtype=torch.int64, device=device) \
         if counting else None
-    port = launch is None
-    if port:
-        def launch(*args):
-            _launch("raycast_pairs_prepass", device, *args, count=False)
     boxes = [x.data_ptr() for x in (origins, dirs, block_lo, block_hi, group_lo, group_hi)]
     sizes = (n_tiles, n_sub, nb, int(group), float(t_max))
-    launch(*boxes, sub_counts.data_ptr(), groups.data_ptr(), union.data_ptr(),
-           rows.data_ptr(), None, None, counts.data_ptr() if counting else None, *sizes, 0)
+    _launch("raycast_pairs_prepass", device, *boxes, sub_counts.data_ptr(), groups.data_ptr(),
+            union.data_ptr(), rows.data_ptr(), None, None,
+            counts.data_ptr() if counting else None, *sizes, 0, count=False)
     offsets = torch.zeros(n_tiles * n_sub + 1, dtype=torch.int64, device=device)
     offsets[1:] = torch.cumsum(sub_counts, 0)
     n_pairs = int(offsets[-1])  # the one host read: it sizes the pair list
@@ -269,10 +264,9 @@ def _prepass(origins, dirs, block_lo, block_hi, group_lo, group_hi, group: int,
         raise ValueError(f"{n_pairs} pairs do not fit int32 offsets")
     offsets = offsets.to(torch.int32)
     blocks = torch.empty(n_pairs, **i32)
-    launch(*boxes, None, None, None, rows.data_ptr(), offsets.data_ptr(), blocks.data_ptr(),
-           None, *sizes, 1)
-    if port:
-        LAUNCHES["raycast_pairs_prepass_count" if counting else "raycast_pairs_prepass"] += 1
+    _launch("raycast_pairs_prepass", device, *boxes, None, None, None, rows.data_ptr(),
+            offsets.data_ptr(), blocks.data_ptr(), None, *sizes, 1, count=False)
+    LAUNCHES["raycast_pairs_prepass_count" if counting else "raycast_pairs_prepass"] += 1
     if counting:
         return offsets, blocks, groups, union, dict(zip(PREPASS_COUNTS, counts.tolist()))
     return offsets, blocks, groups, union

@@ -3,22 +3,16 @@
 Port of ``ipcgen_tpu/ops/raycast.py`` (:40-79 ``raycast_brute``, :82-113
 ``_raycast_asset_xla_core`` as ``raycast_block_scan``, :261-279
 ``finalize_result``, :282-287 ``raycast_asset_xla`` and :336-351 as
-``raycast_asset_brute``, :290-351 ``raycast_asset``).  The backends are:
-
-- ``"pairs"`` (default): the candidate-pair raycast of
-  ``ops/raycast_pairs.py``.  Its inner loop is the CUDA kernel for CUDA
-  tensors and the kernel's plain PyTorch version for CPU tensors; any other
-  device raises.
-- ``"culled"``: the two-level AABB-culled Moller-Trumbore raycast of
-  ``ops/raycast_culled.py`` (the JAX package's "pallas" and "xla"), with the
-  same kernel / plain-version dispatch.  Bit-exact against ``"brute"``.
-- ``"brute"``: the JAX package's ``xla_brute`` oracle, a scan over every
-  leaf block in the component form of Moller-Trumbore
-  (``raycast_block_scan``), with hits at or beyond ``t_max`` dropped
-  afterwards.
+``raycast_asset_brute``, :290-351 ``raycast_asset``).  ``raycast_asset``
+casts through the backends of ``ops/raycast_backends.py``: ``"pairs"`` (the
+default), ``"culled"``, bit-exact against ``"brute"``, and ``"brute"``, the
+JAX package's ``xla_brute`` oracle, a scan over every leaf block in the
+component form of Moller-Trumbore (``raycast_block_scan``), with hits at or
+beyond ``t_max`` dropped afterwards.
 
 There is no "auto" backend that picks a slower path off the accelerator: the
-device of the tensors decides, and a CUDA tensor goes to the kernel.
+device of the tensors decides, and a CUDA tensor goes to the kernel; any
+device but the CPU and CUDA raises.
 """
 
 from __future__ import annotations
@@ -160,26 +154,16 @@ def raycast_asset(origins, dirs, asset: SceneAsset, backend: str = "pairs",
 
     ``backend`` is ``"pairs"`` or ``"culled"`` (CUDA kernel for CUDA
     tensors, its plain version for CPU tensors) or ``"brute"`` (the
-    oracle).  ``t_max`` caps the hit distance (strictly below).
+    oracle); ``ops.raycast_backends.lookup`` raises on any other name.
+    ``t_max`` caps the hit distance (strictly below).
     ``sort_rays`` (pairs only: "auto", True or False) regroups incoherent
     rays into coherent tiles first; "auto" does so when more than 2 % of
     tiles overflow their candidate lists.
     """
+    from ipcgen_tpu_torch.ops.raycast_backends import lookup  # it imports this module
+
+    cast = lookup(backend).cast_asset
     origins = torch.as_tensor(origins, dtype=torch.float32,
                               device=asset.device)
     dirs = torch.as_tensor(dirs, dtype=torch.float32, device=asset.device)
-    if backend == "pairs":
-        from ipcgen_tpu_torch.ops.raycast_pairs import raycast_asset_pairs
-
-        return raycast_asset_pairs(origins, dirs, asset, t_max=t_max,
-                                   sort_rays=sort_rays)
-    if backend == "culled":
-        from ipcgen_tpu_torch.ops.raycast_culled import raycast_asset_culled
-
-        return raycast_asset_culled(origins, dirs, asset, t_max=t_max)
-    if backend == "brute":
-        return raycast_asset_brute(origins, dirs, asset, t_max=t_max)
-    raise ValueError(
-        f"unknown raycast backend {backend!r}; expected 'pairs', 'culled' "
-        "or 'brute'"
-    )
+    return cast(origins, dirs, asset, t_max, sort_rays)

@@ -98,12 +98,12 @@ def dryrun(n_waypoints: int = 64) -> dict:
     from ipcgen_tpu_torch.models.lidar_intrinsics import Indoor8LineLidarIntrinsics
     from ipcgen_tpu_torch.ops.grid_nn import nearest_neighbor_indices_grid
     from ipcgen_tpu_torch.ops.raycast import raycast_asset
+    from ipcgen_tpu_torch.ops.raycast_backends import resolve_backend
     from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset
     from ipcgen_tpu_torch.parallel.shard import (
         _axis,
         _mesh_device,
         make_device_mesh,
-        resolve_backend,
         scan_waypoints_sharded,
         sharded_grid_nn,
         sharded_raycast_2d,

@@ -33,16 +33,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ipcgen_tpu_torch.ops.raycast import (
-    RaycastResult,
-    finalize_result,
-    raycast_brute_components,
-)
-from ipcgen_tpu_torch.ops.raycast_culled import raycast_culled_components
-from ipcgen_tpu_torch.ops.raycast_pairs import _nanmax, _nanmin, raycast_pairs_components
+from ipcgen_tpu_torch.ops.raycast import RaycastResult, finalize_result
+from ipcgen_tpu_torch.ops.raycast_backends import lookup, resolve_backend
+from ipcgen_tpu_torch.ops.raycast_pairs import _nanmax, _nanmin
 from ipcgen_tpu_torch.ops.scene_asset import SceneAsset
-
-PORT_BACKENDS = ("pairs", "culled", "brute")
 
 
 def make_device_mesh(n_devices: Optional[int] = None,
@@ -83,16 +77,6 @@ def _all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     out = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(out, x.contiguous(), group=mesh.get_group(axis))
     return torch.stack(out)
-
-
-def resolve_backend(backend: str) -> str:
-    """The port's backend for a port name or a JAX name ("auto" and the
-    rest go through ``sim.simulator.port_backend``, as on one card)."""
-    if backend in PORT_BACKENDS:
-        return backend
-    from ipcgen_tpu_torch.sim.simulator import port_backend
-
-    return port_backend(backend)
 
 
 def pad_rays(origins: torch.Tensor, dirs: torch.Tensor, multiple: int):
@@ -160,18 +144,11 @@ def block_shard(asset_p: SceneAsset, n_shards: int, index: int):
 def local_raycast(o, d, tri_data, block_lo, block_hi, super_lo, super_hi, *,
                   super_factor: int, t_max: float, backend: str):
     """One shard's raycast, (t, packed slot local to the shard), through the
-    port's component functions: ``"pairs"`` (no ray sort: a shard keeps its
-    rays' order), ``"culled"`` or ``"brute"``; kernels for CUDA tensors,
-    their plain versions for CPU tensors."""
-    if backend == "pairs":
-        return raycast_pairs_components(o, d, tri_data, block_lo, block_hi,
-                                        t_max=t_max, sort_rays=False)
-    if backend == "culled":
-        return raycast_culled_components(o, d, tri_data, block_lo, block_hi, super_lo,
-                                         super_hi, super_factor=super_factor, t_max=t_max)
-    if backend == "brute":
-        return raycast_brute_components(o, d, tri_data, t_max)
-    raise ValueError(f"unknown raycast backend {backend!r}")
+    component call of the port's ``backend`` (``ops.raycast_backends``; the
+    pair kernel without a ray sort: a shard keeps its rays' order); kernels
+    for CUDA tensors, their plain versions for CPU tensors."""
+    return lookup(backend).cast_parts(o, d, tri_data, block_lo, block_hi, super_lo,
+                                      super_hi, super_factor=super_factor, t_max=t_max)
 
 
 def globalize_slots(slot: torch.Tensor, index: int, shard_blocks: int,

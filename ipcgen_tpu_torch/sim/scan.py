@@ -32,6 +32,7 @@ from ipcgen_tpu_torch.models.lidar_intrinsics import (
     Indoor8LineLidarIntrinsics,
 )
 from ipcgen_tpu_torch.ops.raycast import raycast_asset
+from ipcgen_tpu_torch.ops.raycast_backends import BACKENDS, resolve_backend
 from ipcgen_tpu_torch.ops.scene_asset import SceneAsset
 from ipcgen_tpu_torch.utils.device import to_host
 
@@ -126,9 +127,10 @@ def patch_permutation(h: int, w: int, lines_pp: int = 8,
 
 def scan_permutation(intrinsics, r: int, backend: str = "pairs"):
     """(perm, inv_perm) numpy pair: the order the scan casts its rays in.
+    ``backend`` is a port name or a JAX name (``ops.raycast_backends``).
     Patch order for the pair kernel (the JAX package's order for its mxu
     kernel), the identity for every other backend."""
-    if backend != "pairs":
+    if not BACKENDS[resolve_backend(backend)].patch_order:
         perm = np.arange(r, dtype=np.int32)
         return perm, perm
     if isinstance(intrinsics, Indoor8LineLidarIntrinsics):

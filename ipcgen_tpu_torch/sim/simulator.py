@@ -16,17 +16,11 @@ config's ``raycast_engine.use_gpu`` is False, which asks for the CPU
 (``resolve_device``); nothing falls back to another device or engine.
 
 The raycast backend comes from the config's ``raycast_engine.backend``, in
-the JAX package's names (``port_backend``): "mxu" runs the candidate-pair
-kernel, "auto", "pallas" and "xla" the culled Moller-Trumbore kernel (both
-compute the same function in the JAX package), "xla_brute" the block-scan
-oracle.  "auto" is the culled kernel, as the JAX package's "auto" is its
-culled "xla" traversal off the TPU (``ipcgen_tpu/ops/raycast.py:320-323``):
-on an NVIDIA H100 80GB HBM3 at 700 W the culled kernel is bit-exact against
-the oracle and was the faster of the two on each workload of
-``python -m ipcgen_tpu_torch.bench``, pipelined rays per second culled
-against pairs: the box scan 252.8 M against 135.2 M, the reconstructed
-mesh 171.9 M against 87.5 M, BLK2GO x 80 108.8 M against 74.3 M.  The
-tensors' device picks the kernel or its plain version.
+the JAX package's names (``ops.raycast_backends.port_backend``): "mxu" runs
+the candidate-pair kernel, "auto", "pallas" and "xla" the culled
+Moller-Trumbore kernel (both compute the same function in the JAX package),
+"xla_brute" the block-scan oracle.  ``ops/raycast_backends.py`` holds the
+table and why "auto" is the culled kernel.
 
 The trajectory planner's ``occupancy_mode`` comes from the config's
 ``trajectory`` section: "vertices" (the default) or "raycast", which probes
@@ -71,6 +65,7 @@ from ipcgen_tpu_torch.models.lidar_intrinsics import (
     DualAxisLidarIntrinsics,
     Indoor8LineLidarIntrinsics,
 )
+from ipcgen_tpu_torch.ops.raycast_backends import port_backend
 from ipcgen_tpu_torch.ops.scene_asset import SceneAsset, build_scene_asset
 from ipcgen_tpu_torch.sim.scan import scan_waypoints
 from ipcgen_tpu_torch.trajectory import (
@@ -90,26 +85,6 @@ from ipcgen_tpu_torch.viz import (
     TrajectoryVisualizer,
     create_visualization_summary,
 )
-
-# The JAX package's raycast backend names -> the port's backends.
-RAYCAST_BACKENDS = {
-    "auto": "culled",
-    "mxu": "pairs",
-    "pallas": "culled",
-    "xla": "culled",
-    "xla_brute": "brute",
-}
-
-
-def port_backend(name: str) -> str:
-    """The port's raycast backend for a JAX backend name; raises on an
-    unknown name."""
-    try:
-        return RAYCAST_BACKENDS[name]
-    except KeyError:
-        raise ValueError(
-            f"unknown raycast backend {name!r}; expected one of "
-            f"{', '.join(map(repr, RAYCAST_BACKENDS))}") from None
 
 
 def resolve_device(device, use_gpu: bool) -> torch.device:

@@ -1,9 +1,9 @@
 """Build other versions of a kernel source and time them against the port's.
 
-Shared by ``culled_compare``, ``prepass_compare`` and ``kernel_probe``.  A
-version given as ``--against NAME=SRC.cu`` is compiled as the port compiles
-``csrc/<source>.cu`` (``_kernels.NVCC_FLAGS`` and the source's own flags)
-into ``build/ipcgen_tpu_torch/compare/lib<NAME>.so``.  Versions are timed
+Used by ``kernel_probe --against``.  A version given as ``--against
+NAME=SRC.cu`` is compiled as the port compiles ``csrc/<source>.cu``
+(``_kernels.NVCC_FLAGS`` and the source's own flags) into
+``build/ipcgen_tpu_torch/compare/lib<NAME>.so``.  Versions are timed
 with CUDA events in turns: the port, each other version, each other version
 again in reverse order, the port; each turn is the mean of ``REPS`` calls
 after one warm-up.
@@ -12,7 +12,6 @@ after one warm-up.
 from __future__ import annotations
 
 import ctypes
-import json
 import re
 import subprocess
 from pathlib import Path
@@ -100,12 +99,3 @@ def time_in_turns(fns: dict) -> dict:
     for name in (port, *others, *reversed(others), port):
         times[name].append(time_ms(fns[name]))
     return times
-
-
-def emit(out: dict, path) -> None:
-    """Print ``out`` as JSON, and write it to ``path`` unless that is None."""
-    text = json.dumps(out, indent=1)
-    print(text, flush=True)
-    if path is not None:
-        path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_text(text)

@@ -40,6 +40,7 @@ from ipcgen_tpu.ops.scene_asset import build_scene_asset as jax_build  # noqa: E
 from ipcgen_tpu_torch.ops import _kernels  # noqa: E402
 from ipcgen_tpu_torch.ops import raycast_culled as culled  # noqa: E402
 from ipcgen_tpu_torch.ops.geometry import moller_trumbore_components  # noqa: E402
+from ipcgen_tpu_torch.ops import raycast_backends  # noqa: E402
 from ipcgen_tpu_torch.ops.raycast import raycast_asset  # noqa: E402
 from ipcgen_tpu_torch.ops.scene_asset import build_scene_asset  # noqa: E402
 from ipcgen_tpu_torch.sim import simulator as port_sim  # noqa: E402
@@ -230,18 +231,21 @@ def test_kernel_build_commands(name):
 # ---------------------------------------------------------------------------
 # The config route
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name, want", sorted(port_sim.RAYCAST_BACKENDS.items()))
+@pytest.mark.parametrize("name, want", sorted(raycast_backends.RAYCAST_BACKENDS.items()))
 def test_config_backend_names(name, want):
-    assert port_sim.port_backend(name) == want
+    assert raycast_backends.port_backend(name) == want
     sim = port_sim.S3DISSimulator({"raycast_engine": {"backend": name}}, device="cpu")
     assert sim.backend == want
 
 
 def test_unknown_config_backend_raises():
     with pytest.raises(ValueError, match="unknown raycast backend"):
-        port_sim.port_backend("embree")
+        raycast_backends.port_backend("embree")
     with pytest.raises(ValueError):
         port_sim.S3DISSimulator({"raycast_engine": {"backend": "cuda"}}, device="cpu")
+    # The config takes the JAX package's names only, not the port's.
+    with pytest.raises(ValueError, match="unknown raycast backend"):
+        port_sim.S3DISSimulator({"raycast_engine": {"backend": "culled"}}, device="cpu")
 
 
 def test_default_config_gives_pairs():

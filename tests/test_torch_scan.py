@@ -222,18 +222,23 @@ def test_culled_scan_rays_are_the_scans_own(scene, profile):
 
 def test_scan_permutation_follows_the_backend():
     """Patch order for the pair kernel, the identity for the others (as the
-    JAX package gives its mxu and its other backends)."""
+    JAX package gives its mxu and its other backends), whether the port's
+    names or the JAX package's name them; an unknown name raises."""
+    jax_names = ("auto", "mxu", "pallas", "xla", "xla_brute")
     for name, jintr in profiles().items():
         pintr = from_reference(jintr)
         r = 4000 if name != "dense32" else 8000
         for backend, jax_backend in (("pairs", "mxu"), ("culled", "pallas"),
-                                     ("brute", "xla_brute")):
+                                     ("brute", "xla_brute"),
+                                     *zip(jax_names, jax_names)):
             perm, inv = port_scan.scan_permutation(pintr, r, backend)
             jperm, jinv = jax_scan.scan_permutation(jintr, jax_backend, r)
             np.testing.assert_array_equal(perm, jperm)
             np.testing.assert_array_equal(inv, jinv)
-            if backend != "pairs":
+            if jax_backend != "mxu":
                 np.testing.assert_array_equal(perm, np.arange(r))
+        with pytest.raises(ValueError, match="unknown raycast backend"):
+            port_scan.scan_permutation(pintr, r, "embree")
 
 
 def test_dual_axis_dropout_rate():
