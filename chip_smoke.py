@@ -216,8 +216,11 @@ The second-to-last line is the kernels' JSON record (each kernel's
 path's own count; the bench's paths are ``bench_<workload>_<kernel>``;
 ``nn_exact_kernel`` also gives each sim path's residue rows, the launches
 of its own check phase as ``check_calls``, and the rows where it differed
-from its plain version there as ``rows_off``), the last line
-``{"ok": true, "device": {...}}``.  Needs ``torch.cuda.is_available()``.
+from its plain version there as ``rows_off``; the scene asset's two
+launches, checked by ``phase_scene_asset`` at the benchmark's 1.4 M-triangle
+office against the plain version and the numpy build bit for bit, close
+it), the last line ``{"ok": true, "device": {...}}``.  Needs
+``torch.cuda.is_available()``.
 """
 
 from __future__ import annotations
@@ -2524,6 +2527,70 @@ def phase_nn_exact(device, card: str) -> dict:
     return out
 
 
+ASSET_SEED = 3500000037  # the benchmark's office (benchmark/rooms.py), room 0
+ASSET_VOXEL = 0.03  # its cells' recon cut: about 1.4 M triangles
+
+
+def asset_bytes(n_verts: int, n_tris: int, n_blocks: int, block_size: int,
+                n_supers: int) -> int:
+    """The least bytes the asset's build must move: the float32 vertices and
+    int32 triangles read once, the eight arrays written once."""
+    slots = n_blocks * block_size
+    return 12 * (n_verts + n_tris) + slots * (16 * 4 + 4 + 12 + 16) + 24 * (n_blocks + n_supers)
+
+
+def phase_scene_asset(device, card: str) -> dict:
+    """The scene asset's build at the benchmark's 1.4 M-triangle office: the
+    kernels (``scene_arrays_card``) against the plain torch version on the
+    card and the numpy build, bit for bit; one launch of each kernel a build;
+    times warm with CUDA events (the kernels alone, the build from the host
+    arrays, the plain version) and the numpy build's host seconds."""
+    import torch
+
+    from benchmark.rooms import Room, room_rng
+    from ipcgen_tpu_torch.ops import _kernels
+    from ipcgen_tpu_torch.ops import scene_asset as sa
+
+    verts, tris = Room.draw(room_rng(ASSET_SEED, 0)).recon_mesh(ASSET_VOXEL)
+    verts = verts.astype(np.float64)  # as TriMesh.load gives them
+    t0 = time.perf_counter()
+    ref = sa.build_scene_arrays(verts, tris)
+    numpy_s = time.perf_counter() - t0
+    v = torch.from_numpy(verts.astype(np.float32)).to(device)
+    t = torch.from_numpy(tris.astype(np.int32)).to(device)
+    before = {k: _kernels.LAUNCHES[k] for k in ("scene_codes", "scene_pack")}
+    asset = sa.build_scene_asset(verts, tris, device=device)
+    require(all(_kernels.LAUNCHES[k] == n + 1 for k, n in before.items()),
+            f"scene asset: one launch of each kernel a build: {_kernels.LAUNCHES}")
+    card_fields = sa.scene_arrays_card(v, t)
+    plain_fields = sa.scene_arrays_plain(v, t)
+    for k in sa._ARRAY_FIELDS:
+        want = ref[k]
+        for route, got in (("build_scene_asset", getattr(asset, k)),
+                           ("kernels", card_fields[k]), ("plain", plain_fields[k])):
+            got = got.cpu().numpy()
+            require(got.dtype == want.dtype and got.shape == want.shape
+                    and np.array_equal(got, want, equal_nan=True),
+                    f"scene asset {k}: the {route} route differs from build_scene_arrays")
+    codes, keys = _kernels.scene_codes_cuda(v, t, 10)
+    order = torch.sort(codes, stable=True).indices
+    nb = asset.num_blocks
+    n = len(tris)
+    out = {
+        "triangles": n, "blocks": nb, "numpy_s": numpy_s,
+        "ms": time_ms(lambda: sa.scene_arrays_card(v, t), 10),
+        "codes_ms": time_ms(lambda: _kernels.scene_codes_cuda(v, t, 10), 10),
+        "sort_ms": time_ms(lambda: torch.sort(codes, stable=True), 10),
+        "pack_ms": time_ms(lambda: _kernels.scene_pack_cuda(v, t, order, keys, nb, 128, 8), 10),
+        "from_host_ms": time_ms(lambda: sa.build_scene_asset(verts, tris, device=device), 5),
+        "plain_ms": time_ms(lambda: sa.scene_arrays_plain(v, t), 3),
+        **bound(asset_bytes(len(verts), n, nb, 128, asset.num_supers), 0.0),
+    }
+    out["x_bound"] = (out["codes_ms"] + out["pack_ms"]) / out["bound_ms"]
+    log(f"[scene-asset] on {card}: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2598,6 +2665,10 @@ def main() -> int:
         _kernels.LAUNCHES[k] = 0
     nn = phase("nn_exact", phase_nn_exact, device, card)
     nn_check_calls = _kernels.LAUNCHES["nn_exact"]
+    for k in _kernels.LAUNCHES:
+        _kernels.LAUNCHES[k] = 0
+    scene = phase("scene_asset", phase_scene_asset, device, card)
+    scene_check_calls = {k: _kernels.LAUNCHES[k] for k in ("scene_codes", "scene_pack")}
     log(f"[summary] phase seconds {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     log(f"[summary] batch {json.dumps({k: v for k, v in batch.items() if k != 'rooms'})}; "
         f"preprocess warm spans {json.dumps(preprocess['runs'][-1]['spans'])}")
@@ -2780,6 +2851,25 @@ def main() -> int:
         "bound_set_by": f"queries x references x {NN_OPS_PER_PAIR} fp32 issue slots a pair",
         "shapes": nn,
     })
+    for name, key, ms in (("centroid_kernel + morton_kernel", "scene_codes", "codes_ms"),
+                          ("pack_kernel + supers_kernel", "scene_pack", "pack_ms")):
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": "ipcgen_tpu_torch/csrc/scene_asset.cu",
+            "replaces": None,
+            "replaces_note": "no Pallas kernel: the JAX package builds the scene asset in "
+                             "host numpy (ipcgen_tpu/ops/scene_asset.py:138)",
+            "launches": sum(path_launches(key).values()),
+            "launches_by_path": path_launches(key),
+            "check_calls": scene_check_calls[key],
+            "max_abs_err": 0.0,
+            "ms": scene[ms], "plain_ms": scene["plain_ms"], "numpy_s": scene["numpy_s"],
+            "sort_ms": scene["sort_ms"], "build_ms": scene["ms"],
+            "from_host_ms": scene["from_host_ms"],
+            "bound_ms": scene["bound_ms"], "bound_by": scene["bound_by"],
+            "bound_set_by": "the mesh read and the arrays written once, over 3.35 TB/s, for "
+                            "both kernels together (asset_bytes)",
+            "library_ms": None, "triangles": scene["triangles"],
+        })
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

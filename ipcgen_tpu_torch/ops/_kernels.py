@@ -37,14 +37,16 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-# Source name -> its own nvcc flags.  The culled raycast and the exact 1-NN
-# must round every product and sum on their own (bit-exact against the
-# oracle and the plain version): no FMA contraction.
+# Source name -> its own nvcc flags.  The culled raycast, the exact 1-NN and
+# the scene asset's build must round every product and sum on their own
+# (bit-exact against the oracle, the plain version or the numpy build): no
+# FMA contraction.
 SOURCES = {
     "raycast_pairs": [],
     "raycast_culled": ["-fmad=false"],
     "raycast_probe": [],
     "nn_exact": ["-fmad=false"],
+    "scene_asset": ["-fmad=false"],
 }
 
 _C_PTR, _C_INT, _C_FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -64,6 +66,8 @@ KERNELS = {
     "raycast_probe_flat": ("raycast_probe",
                            [_C_PTR] * 7 + [_C_INT] * 2 + [_C_FLOAT, _C_PTR]),
     "nn_exact": ("nn_exact", [_C_PTR] * 3 + [_C_INT] * 4 + [_C_PTR]),
+    "scene_codes": ("scene_asset", [_C_PTR] * 5 + [_C_INT] * 3 + [_C_PTR]),
+    "scene_pack": ("scene_asset", [_C_PTR] * 12 + [_C_INT] * 5 + [_C_PTR]),
 }
 
 # Launch count per kernel, and of the prepass's counting launch under its own
@@ -579,3 +583,81 @@ def nn_exact_cuda(queries, refs):
         _launch("nn_exact", device, queries.data_ptr(), refs.data_ptr(), keys.data_ptr(),
                 n, m, chunk, splits)
     return keys & 0xFFFFFFFF
+
+
+def scene_codes_cuda(vertices, triangles, bits: int):
+    """Launch ``scene_codes_launch`` (csrc/scene_asset.cu: ``centroid_kernel``
+    then ``morton_kernel``): each triangle's centroid and its Morton code on
+    a 2^bits grid over the centroids' bounds, as ``utils/native.py``
+    ``morton_order`` codes them.
+
+    vertices (V, 3) float32 and triangles (T, 3) int32, every index in
+    [0, V), on one CUDA device; T > 0, 1 <= bits <= 10.  Returns (codes (T,)
+    int32, keys (6,) int32: the bits of the centroids' per-axis minimum and
+    maximum as ordered keys, which ``scene_pack_cuda`` reads), with no host
+    read.
+    """
+    device = vertices.device
+    if device.type != "cuda":
+        raise ValueError(f"scene_codes_cuda: vertices is on {device}, not CUDA")
+    _check(vertices, "vertices", torch.float32, 2, device)
+    _check(triangles, "triangles", torch.int32, 2, device)
+    n = triangles.shape[0]
+    if vertices.shape[1:] != (3,) or triangles.shape[1:] != (3,) or n == 0:
+        raise ValueError(f"vertices/triangles: shapes {tuple(vertices.shape)}, "
+                         f"{tuple(triangles.shape)}, expected (V, 3) and (T, 3), T > 0")
+    if not 1 <= bits <= 10:
+        raise ValueError(f"bits must be in 1..10 (30-bit codes), got {bits}")
+    centroids = torch.empty((n, 3), dtype=torch.float32, device=device)
+    keys = torch.empty(6, dtype=torch.int32, device=device)
+    codes = torch.empty(n, dtype=torch.int32, device=device)
+    _launch("scene_codes", device, vertices.data_ptr(), triangles.data_ptr(),
+            centroids.data_ptr(), keys.data_ptr(), codes.data_ptr(), n, int(bits),
+            torch.cuda.get_device_properties(device).multi_processor_count)
+    return codes, keys
+
+
+def scene_pack_cuda(vertices, triangles, order, keys, n_blocks: int, block_size: int,
+                    super_factor: int) -> dict:
+    """Launch ``scene_pack_launch`` (csrc/scene_asset.cu: ``pack_kernel``, one
+    CUDA block a leaf block, then ``supers_kernel``): the asset's eight
+    arrays from the triangles in ``order``.
+
+    vertices and triangles as for ``scene_codes_cuda``; order (T,) int64 a
+    permutation of [0, T); keys (6,) int32 from ``scene_codes_cuda``;
+    n_blocks * block_size >= T, 1 <= block_size <= 1024.  Returns the
+    arrays by ``SceneAsset`` field name, with no host read.
+    """
+    device = vertices.device
+    if device.type != "cuda":
+        raise ValueError(f"scene_pack_cuda: vertices is on {device}, not CUDA")
+    _check(vertices, "vertices", torch.float32, 2, device)
+    _check(triangles, "triangles", torch.int32, 2, device)
+    _check(order, "order", torch.int64, 1, device)
+    _check(keys, "keys", torch.int32, 1, device)
+    n = triangles.shape[0]
+    if order.shape != (n,) or keys.shape != (6,) or n == 0:
+        raise ValueError(f"order/keys: shapes {tuple(order.shape)}, {tuple(keys.shape)}, "
+                         f"expected ({n},) and (6,), T > 0")
+    if not 1 <= block_size <= 1024 or n_blocks * block_size < n or super_factor <= 0:
+        raise ValueError(f"{n_blocks} blocks of {block_size} (at most 1024) for {n} "
+                         f"triangles, super_factor {super_factor}")
+    n_supers = -(-n_blocks // super_factor)
+    slots = n_blocks * block_size
+    f32 = dict(dtype=torch.float32, device=device)
+    out = dict(
+        tri_data=torch.empty((n_blocks, 16, block_size), **f32),
+        block_lo=torch.empty((n_blocks, 3), **f32),
+        block_hi=torch.empty((n_blocks, 3), **f32),
+        super_lo=torch.empty((n_supers, 3), **f32),
+        super_hi=torch.empty((n_supers, 3), **f32),
+        tri_index=torch.empty(slots, dtype=torch.int32, device=device),
+        tri_normal=torch.empty((slots, 3), **f32),
+        tri_fin=torch.empty((slots, 4), **f32),
+    )
+    _launch("scene_pack", device, vertices.data_ptr(), triangles.data_ptr(), order.data_ptr(),
+            keys.data_ptr(), *(out[k].data_ptr() for k in (
+                "tri_data", "tri_index", "tri_normal", "tri_fin", "block_lo", "block_hi",
+                "super_lo", "super_hi")),
+            n, n_blocks, block_size, n_supers, super_factor)
+    return out

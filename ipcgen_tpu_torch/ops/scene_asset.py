@@ -1,11 +1,18 @@
 """Device-resident scene acceleration structure.
 
-Port of ``ipcgen_tpu/ops/scene_asset.py`` (:31-265).  The build is the same
-host numpy (Morton-sorted 128-triangle leaf blocks padded with far-away
-degenerate triangles, NaN AABBs for fully padded blocks, super-block AABBs,
-the block-count bucketing); the result holds torch tensors on ``device``.
-The arrays are identical to the JAX build's, so parity tests can also carry
-a JAX asset over with ``scene_asset_from_numpy``.
+Port of ``ipcgen_tpu/ops/scene_asset.py`` (:31-265): Morton-sorted
+128-triangle leaf blocks padded with far-away degenerate triangles, NaN
+AABBs for fully padded blocks, super-block AABBs, the block-count bucketing;
+the result holds torch tensors on ``device``.
+
+``build_scene_arrays`` is the JAX build's host numpy, array for array, and
+the reference of the two routes of ``build_scene_asset``, which upload only
+the float32 vertices and int32 triangles and build on the target device: a
+CUDA device takes the hand-written kernels of ``csrc/scene_asset.cu``
+(``scene_arrays_card``), any other the plain torch version
+(``scene_arrays_plain``).  Both give ``build_scene_arrays``' arrays bit for
+bit, so parity tests can also carry a JAX asset over with
+``scene_asset_from_numpy``.
 """
 
 from __future__ import annotations
@@ -216,15 +223,170 @@ def scene_asset_from_numpy(fields: Mapping, device) -> SceneAsset:
     )
 
 
+def _mesh_tensors(vertices, triangles, device: torch.device):
+    """The mesh as the routes take it: float32 vertices (cast from the input
+    as ``build_scene_arrays`` casts them) and int32 triangles, checked and
+    copied to ``device`` without waiting on its stream."""
+    vertices = np.ascontiguousarray(vertices, dtype=np.float32).reshape(-1, 3)
+    triangles = np.asarray(triangles).reshape(-1, 3)
+    if len(triangles) == 0:
+        raise ValueError("build_scene_asset: mesh has no triangles.")
+    lo, hi = triangles.min(), triangles.max()
+    if lo < 0 or hi >= len(vertices):
+        raise ValueError(f"build_scene_asset: triangle indices span [{lo}, {hi}], "
+                         f"outside [0, {len(vertices)})")
+    triangles = np.ascontiguousarray(triangles, dtype=np.int32)
+    if device.type != "cuda":
+        return torch.from_numpy(vertices).to(device), torch.from_numpy(triangles).to(device)
+    return tuple(torch.from_numpy(a).pin_memory().to(device, non_blocking=True)
+                 for a in (vertices, triangles))
+
+
+def _block_counts(n_tris: int, block_size: int, super_factor: int, bucket: bool):
+    n_blocks = -(-n_tris // block_size)
+    if bucket:
+        n_blocks = _bucket_count(n_blocks)
+    return n_blocks, -(-n_blocks // super_factor)
+
+
+def scene_arrays_plain(vertices: torch.Tensor, triangles: torch.Tensor,
+                       block_size: int = 128, super_factor: int = 8,
+                       morton_bits: int = 10, bucket: bool = True) -> dict:
+    """The asset's arrays in plain torch on the tensors' device, bit for bit
+    those of ``build_scene_arrays`` (with its native Morton sort), plus
+    ``n_tris``/``block_size``/``super_factor``.
+
+    vertices (V, 3) float32 and triangles (T, 3) int32 with every index in
+    [0, V), T > 0.  Every difference, product, sum, quotient and square root
+    is its own torch op, rounded on its own as numpy's are (the square root
+    through float64), and every scalar is a float32 tensor on the device (a
+    CUDA division by a host scalar multiplies by its reciprocal); the Morton
+    codes follow ``native/ipcgen_native.cc`` ``morton_order`` and sort
+    stably.
+    """
+    dev = vertices.device
+
+    def f32(x) -> torch.Tensor:
+        return torch.tensor(np.float32(x), device=dev)
+
+    n_tris = int(triangles.shape[0])
+    corners = vertices[triangles.long()]  # (T, 3, 3)
+    centroids = (corners[:, 0] + corners[:, 1] + corners[:, 2]) / f32(3.0)
+    lo = centroids.amin(0)
+    extent = torch.maximum(centroids.amax(0) - lo, f32(1e-9))
+    inv = torch.ones_like(extent) / extent
+    scale = (1 << morton_bits) - 1
+    q = (((centroids - lo) * inv).clamp(0.0, 1.0) * f32(scale)).long().clamp(max=scale)
+
+    def spread(v):
+        v = v & ((1 << morton_bits) - 1)
+        for shift, mask in ((32, 0x1F00000000FFFF), (16, 0x1F0000FF0000FF),
+                            (8, 0x100F00F00F00F00F), (4, 0x10C30C30C30C30C3),
+                            (2, 0x1249249249249249)):
+            v = (v | (v << shift)) & mask
+        return v
+
+    codes = spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+    order = torch.sort(codes, stable=True).indices
+    corners = corners[order]
+    tri_index = order.to(torch.int32)
+
+    n_blocks, n_supers = _block_counts(n_tris, block_size, super_factor, bucket)
+    n_pad = n_blocks * block_size - n_tris
+    if n_pad:
+        corners = torch.cat([corners, torch.full((n_pad, 3, 3), _PAD_COORD,
+                                                 dtype=torch.float32, device=dev)])
+        tri_index = torch.cat([tri_index, torch.full((n_pad,), -1, dtype=torch.int32,
+                                                     device=dev)])
+    v0 = corners[:, 0]
+    e1 = corners[:, 1] - corners[:, 0]
+    e2 = corners[:, 2] - corners[:, 0]
+    tri_data = torch.zeros((n_blocks, 16, block_size), dtype=torch.float32, device=dev)
+    tri_data[:, :9, :] = torch.cat([v0, e1, e2], 1).reshape(
+        n_blocks, block_size, 9).transpose(1, 2)
+    # numpy's cross: a1 b2 - a2 b1, a2 b0 - a0 b2, a0 b1 - a1 b0.
+    raw = torch.stack([e1[:, i] * e2[:, j] - e1[:, j] * e2[:, i]
+                       for i, j in ((1, 2), (2, 0), (0, 1))], 1)
+    sq = raw * raw
+    # numpy's (x x + y y) + z z.  torch's float32 square root on the CPU is
+    # not always correctly rounded; the float64 root rounded to float32 is
+    # (a float32's root lies at least 2^-51 of itself from a midpoint
+    # between float32s, farther than a float64 root within an ulp strays).
+    norm = torch.sqrt((sq[:, 0] + sq[:, 1] + sq[:, 2]).double()).float()
+    tri_normal = raw / torch.maximum(norm, f32(1e-20))[:, None]
+    tri_fin = torch.cat([tri_normal, tri_index.view(torch.float32)[:, None]], 1)
+
+    # Leaf AABBs over real triangles only; NaN boxes for fully padded blocks.
+    blk = corners.reshape(n_blocks, block_size, 3, 3)
+    valid = (torch.arange(n_blocks * block_size, device=dev) < n_tris).reshape(
+        n_blocks, block_size, 1, 1)
+    inf = f32(np.inf)
+    eps = f32(1e-5) * torch.maximum(extent.amax(), f32(1.0))
+    blk_lo = torch.where(valid, blk, inf).amin((1, 2)) - eps
+    blk_hi = torch.where(valid, blk, -inf).amax((1, 2)) + eps
+    empty = ~torch.isfinite(blk_lo[:, :1])
+    blk_lo = torch.where(empty, f32(np.nan), blk_lo)
+    blk_hi = torch.where(empty, f32(np.nan), blk_hi)
+
+    def nan_reduce(x, fill, reduce):
+        x = torch.cat([x, torch.full((n_supers * super_factor - n_blocks, 3), np.nan,
+                                     dtype=torch.float32, device=dev)])
+        x = x.reshape(n_supers, super_factor, 3)
+        nan = torch.isnan(x)
+        out = reduce(torch.where(nan, f32(fill), x))
+        return torch.where(nan.all(1), f32(np.nan), out)
+
+    return dict(
+        tri_data=tri_data,
+        block_lo=blk_lo,
+        block_hi=blk_hi,
+        super_lo=nan_reduce(blk_lo, np.inf, lambda x: x.amin(1)),
+        super_hi=nan_reduce(blk_hi, -np.inf, lambda x: x.amax(1)),
+        tri_index=tri_index,
+        tri_normal=tri_normal,
+        tri_fin=tri_fin,
+        n_tris=n_tris,
+        block_size=block_size,
+        super_factor=super_factor,
+    )
+
+
+def scene_arrays_card(vertices: torch.Tensor, triangles: torch.Tensor,
+                      block_size: int = 128, super_factor: int = 8,
+                      morton_bits: int = 10, bucket: bool = True) -> dict:
+    """``scene_arrays_plain`` on a CUDA device through the kernels of
+    ``csrc/scene_asset.cu``: the centroids and Morton codes
+    (``_kernels.scene_codes_cuda``), ``torch.sort(stable=True)``, then the
+    pack (``_kernels.scene_pack_cuda``).  Nothing is read back to the host;
+    the arrays are the plain version's bit for bit."""
+    from ipcgen_tpu_torch.ops import _kernels
+
+    n_tris = int(triangles.shape[0])
+    codes, keys = _kernels.scene_codes_cuda(vertices, triangles, morton_bits)
+    order = torch.sort(codes, stable=True).indices
+    n_blocks, _ = _block_counts(n_tris, block_size, super_factor, bucket)
+    out = _kernels.scene_pack_cuda(vertices, triangles, order, keys, n_blocks,
+                                   block_size, super_factor)
+    return dict(out, n_tris=n_tris, block_size=block_size, super_factor=super_factor)
+
+
+def builds_on_card(device) -> bool:
+    """Whether ``build_scene_asset`` builds on ``device`` with the kernels."""
+    return torch.device(device).type == "cuda"
+
+
 def build_scene_asset(vertices, triangles, block_size: int = 128,
                       super_factor: int = 8, morton_bits: int = 10,
                       bucket: bool = True, device="cuda") -> SceneAsset:
-    """Build the two-level structure on the host and move it to ``device``."""
-    return scene_asset_from_numpy(
-        build_scene_arrays(vertices, triangles, block_size, super_factor,
-                           morton_bits, bucket),
-        device,
-    )
+    """Upload the mesh (float32 vertices, int32 triangles) and build the
+    two-level structure on ``device``: with the kernels on a CUDA device
+    (``scene_arrays_card``), with the plain torch version elsewhere
+    (``scene_arrays_plain``).  The arrays are ``build_scene_arrays``'."""
+    device = torch.device(device)
+    verts, tris = _mesh_tensors(vertices, triangles, device)
+    build = scene_arrays_card if builds_on_card(device) else scene_arrays_plain
+    fields = build(verts, tris, block_size, super_factor, morton_bits, bucket)
+    return SceneAsset(**fields)
 
 
 def asset_from_mesh(mesh, block_size: int = 128, super_factor: int = 8, *,

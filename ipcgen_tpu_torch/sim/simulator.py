@@ -66,7 +66,7 @@ from ipcgen_tpu_torch.models.lidar_intrinsics import (
     Indoor8LineLidarIntrinsics,
 )
 from ipcgen_tpu_torch.ops.raycast_backends import port_backend
-from ipcgen_tpu_torch.ops.scene_asset import SceneAsset, build_scene_asset
+from ipcgen_tpu_torch.ops.scene_asset import SceneAsset, build_scene_asset, builds_on_card
 from ipcgen_tpu_torch.sim.scan import scan_waypoints
 from ipcgen_tpu_torch.trajectory import (
     AutoTrajectoryGenerator,
@@ -164,18 +164,23 @@ class S3DISSimulator:
     # ------------------------------------------------------------------
     @_span("load_scene")
     def load_scene(self, scene_path: str, scene_name: Optional[str] = None) -> S3DISScene:
-        """Load the mesh, build the resident asset, start the label prefetch
+        """Load the mesh (span ``mesh_read``), build the resident asset
+        (span ``asset_build``; the counter ``asset_device_build`` is 1 where
+        the card built it, 0 where the host did), start the label prefetch
         and set up the trajectory generators."""
         if scene_name is None:
             scene_name = Path(scene_path).stem
         self.rec.room = scene_name
-        mesh = TriMesh.load(scene_path)
-        if mesh.num_vertices == 0:
-            raise ValueError(f"Failed to load mesh file: {scene_path}")
-        room_bounds = RoomBounds.from_mesh(mesh)
-        self.scene = S3DISScene(scene_name, mesh, room_bounds=room_bounds)
-        self.scene_asset = build_scene_asset(mesh.vertices, mesh.triangles,
-                                             device=self.device)
+        with self.rec.span("mesh_read"):
+            mesh = TriMesh.load(scene_path)
+            if mesh.num_vertices == 0:
+                raise ValueError(f"Failed to load mesh file: {scene_path}")
+            room_bounds = RoomBounds.from_mesh(mesh)
+            self.scene = S3DISScene(scene_name, mesh, room_bounds=room_bounds)
+        with self.rec.span("asset_build"):
+            self.scene_asset = build_scene_asset(mesh.vertices, mesh.triangles,
+                                                 device=self.device)
+        self.rec.count("asset_device_build", float(builds_on_card(self.device)))
         root = self.config.get("s3dis_data_root")
         area, room = self.config.get("area"), self.config.get("room")
         # A batch run may have prewarmed this room's labels

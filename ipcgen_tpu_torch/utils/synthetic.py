@@ -16,6 +16,10 @@ and the port's tests.
 ``patch_ordered_scan_rays`` is the ray set of
 ``scripts/bench_kernel_iter.py:21-36``, which the kernel probe
 (``ipcgen_tpu_torch/kernel_probe.py``) casts.
+
+``asset_edge_meshes`` are the meshes whose scene asset a build could get
+wrong: ragged and tiny block counts, degenerate triangles, Morton ties and a
+flat extent.
 """
 
 from __future__ import annotations
@@ -323,3 +327,49 @@ def culled_edge_cases(seed: int = 0):
             add(o, d)
     return (verts, faces, np.stack(origins), np.stack(dirs), dict(EDGE_KW),
             EDGE_T_MAX)
+
+
+def asset_edge_meshes(seed: int = 0):
+    """{name: (vertices float64, triangles int32)} for the scene asset's
+    builds (``ops/scene_asset.py``):
+
+    - ``ragged``: 1,000 random triangles, not a multiple of 128;
+    - ``few_blocks``: 300, three leaf blocks of 128, within the bucketing's
+      granularity of 4;
+    - ``single``: one triangle;
+    - ``zero_area``: 200 triangles, half of them with two equal corners or
+      collinear ones (zero normals);
+    - ``equal_centroids``: 400 triangles in 25 groups of 16 that share a
+      centroid (each group one triangle turned about it), so their Morton
+      codes tie;
+    - ``flat``: 500 triangles with every z equal, an extent under 1e-9 on
+      that axis.
+    """
+    rng = np.random.default_rng(seed)
+
+    def soup(n, lo=(0.0, 0.0, 0.0), hi=(6.0, 5.0, 2.5), size=0.2):
+        c = rng.uniform(lo, hi, (n, 1, 3)) + rng.uniform(-size, size, (n, 3, 3))
+        return c.reshape(-1, 3), np.arange(3 * n, dtype=np.int32).reshape(-1, 3)
+
+    out = {"ragged": soup(1000), "few_blocks": soup(300), "single": soup(1)}
+    v, t = soup(200)
+    c = v.reshape(-1, 3, 3)
+    c[::4, 1] = c[::4, 0]  # two equal corners
+    c[1::4, 2] = c[1::4, 0] + 2.0 * (c[1::4, 1] - c[1::4, 0])  # collinear
+    out["zero_area"] = (c.reshape(-1, 3), t)
+    centers = rng.uniform((0.0, 0.0, 0.0), (6.0, 5.0, 2.5), (25, 3))
+    base = rng.uniform(-0.1, 0.1, (3, 3))
+    base -= base.mean(axis=0)
+    tris = []
+    for ctr in centers:
+        for k in range(16):
+            a = 2.0 * np.pi * k / 16
+            rot = np.array([[np.cos(a), -np.sin(a), 0.0], [np.sin(a), np.cos(a), 0.0],
+                            [0.0, 0.0, 1.0]])
+            tris.append(ctr + base @ rot.T)
+    out["equal_centroids"] = (np.concatenate(tris),
+                              np.arange(3 * len(tris), dtype=np.int32).reshape(-1, 3))
+    v, t = soup(500)
+    v[:, 2] = 1.25
+    out["flat"] = (v, t)
+    return out
