@@ -194,6 +194,16 @@ Phases (any failure propagates and exits non-zero; nothing is caught):
    ``NN_OPS_PER_PAIR`` issue slots a pair; and the kernel alone at 500,000
    x 2,600,000 (a room at S3DIS's density, where a fifth of the hits would
    reach the residue).
+21. the scene asset's build (``phase_scene_asset``) and the label
+   prefetch's build on the card (``phase_label_build``) at the benchmark's
+   office (1.4 M triangles; 1.3 M TLS points): the colour join's indices
+   and matches, the label grid's ``h0``, tables, counts and slot ids bit for
+   bit the numpy build's, and 200,000 queries' indices from the card's grid
+   equal to the host-built grid's; the join (from its device keys and from
+   the host arrays) and the grid build (from the host array, the upload
+   included) timed warm with CUDA events against the bytes they must move
+   over 3.35 TB/s; each build's peak device memory and what its result
+   holds.
 
 Each phase's seconds are logged.  The launch checks of the batch, the
 pipeline, the release gate and the room-parallel driver follow the kernel
@@ -2591,6 +2601,97 @@ def phase_scene_asset(device, card: str) -> dict:
     return out
 
 
+LABEL_TLS_POINTS = 1_300_000  # the benchmark cells' TLS points a room
+
+
+def label_build_bytes(n_ann: int, n_raw: int, levels) -> dict:
+    """The least bytes the label prefetch's builds must move: the join reads
+    both float64 clouds and writes an index and a flag a row; the grid
+    reads the float32 references and writes each level's table, slot ids
+    and counts once."""
+    grid = 12 * n_ann + sum(p["table"].numel() * 4 + p["slot_ids"].numel() * 4
+                            + p["counts"].numel() * 4 for p in levels)
+    return {"join": 24 * (n_ann + n_raw) + 9 * n_ann, "grid": grid}
+
+
+def build_memory(device, build) -> tuple:
+    """(peak, held): the bytes ``build()`` allocates on ``device`` at its
+    peak and the bytes its result still holds, both above what was
+    allocated before it."""
+    import torch
+
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    result = build()
+    torch.cuda.synchronize(device)
+    held = torch.cuda.memory_allocated(device) - base
+    del result
+    return torch.cuda.max_memory_allocated(device) - base, held
+
+
+def phase_label_build(device, card: str) -> dict:
+    """The label prefetch's colour join and ``LabelGrid`` built on the card
+    at the benchmark's office, against the numpy build bit for bit; the
+    card grid's indices equal to the host grid's; times warm with CUDA
+    events and the numpy build's host seconds."""
+    import torch
+
+    from benchmark.rooms import Room, room_rng, scan_room
+    from ipcgen_tpu_torch.containers import sim_scene as ss
+    from ipcgen_tpu_torch.ops import grid_nn as gn
+
+    rng = room_rng(ASSET_SEED, 0)
+    tls = scan_room(Room.draw(rng), rng, LABEL_TLS_POINTS, 0.002, 0.005)
+    ann = np.vstack([mm for mm, _ in tls.instances.values()]) / 1000.0
+    raw = np.vstack([ann, tls.outliers_mm / 1000.0])
+    raw = raw[rng.permutation(len(raw))]
+    refs = ann.astype(np.float32)
+
+    t0 = time.perf_counter()
+    want_idx, want_m = ss._exact_coord_join(ann, raw)
+    join_numpy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = gn.LabelGrid(refs, device="cpu")
+    grid_numpy_s = time.perf_counter() - t0
+    memory = {"join": build_memory(device, lambda: ss._exact_coord_join_tensor(ann, raw, device)),
+              "grid": build_memory(device, lambda: gn.LabelGrid(refs, device=device))}
+    idx, m = ss._exact_coord_join_tensor(ann, raw, device)
+    require(np.array_equal(idx.cpu().numpy(), want_idx)
+            and np.array_equal(m.cpu().numpy(), want_m),
+            "label build: the card's colour join differs from _exact_coord_join")
+    card_grid = gn.LabelGrid(refs, device=device)
+    require(card_grid.device_build and card_grid.h0 == host.h0,
+            f"label build: h0 {card_grid.h0} on the card, {host.h0} on the host")
+    for lvl, (a, b) in enumerate(zip(card_grid._lvl, host._lvl)):
+        for k in ("table", "counts", "slot_ids", "lo", "inv_h", "dims"):
+            require(a[k].dtype == b[k].dtype and torch.equal(a[k].cpu(), b[k]),
+                    f"label build: level {lvl} {k} differs from _build_slab_host")
+    q_rng = np.random.default_rng(ASSET_SEED)
+    q = (refs[q_rng.choice(len(refs), 200_000)]
+         + q_rng.normal(0, 0.01, (200_000, 3))).astype(np.float32)
+    require(np.array_equal(card_grid.query(torch.from_numpy(q).to(device)), host.query(q)),
+            "label build: the card grid's indices differ from the host grid's")
+    sizes = label_build_bytes(len(ann), len(raw), card_grid._lvl)
+    ann_keys, raw_keys = ss._coord_keys(ann, device), ss._coord_keys(raw, device)
+    out = {
+        "annotation_points": len(ann), "raw_points": len(raw), "h0": card_grid.h0,
+        "matched": int(want_m.sum()), "join_numpy_s": join_numpy_s,
+        "grid_numpy_s": grid_numpy_s,
+        "join_ms": time_ms(lambda: ss._coord_join_keys(ann_keys, raw_keys), 5),
+        "join_from_host_ms": time_ms(lambda: ss._exact_coord_join_tensor(ann, raw, device), 5),
+        "grid_from_host_ms": time_ms(lambda: gn.LabelGrid(refs, device=device), 5),
+        "join_bound_ms": sizes["join"] / PEAK_BYTES * 1e3,
+        "grid_bound_ms": sizes["grid"] / PEAK_BYTES * 1e3,
+        **{f"{k}_{what}_mb": v[i] / 1e6 for k, v in memory.items()
+           for i, what in enumerate(("peak", "held"))},
+        **bound(sizes["join"] + sizes["grid"], 0.0),
+    }
+    out["x_bound"] = (out["join_from_host_ms"] + out["grid_from_host_ms"]) / out["bound_ms"]
+    log(f"[label-build] on {card}: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2669,6 +2770,7 @@ def main() -> int:
         _kernels.LAUNCHES[k] = 0
     scene = phase("scene_asset", phase_scene_asset, device, card)
     scene_check_calls = {k: _kernels.LAUNCHES[k] for k in ("scene_codes", "scene_pack")}
+    phase("label_build", phase_label_build, device, card)
     log(f"[summary] phase seconds {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     log(f"[summary] batch {json.dumps({k: v for k, v in batch.items() if k != 'rooms'})}; "
         f"preprocess warm spans {json.dumps(preprocess['runs'][-1]['spans'])}")

@@ -7,7 +7,9 @@ and the byte-identical combined_pointcloud_with_label.ply), with every method
 that reached JAX or matplotlib replaced:
 
 - ``load_room_label_data`` and ``LabelPrefetch`` call the port's exact 1-NN
-  and build the port's ``LabelGrid`` on the scene's device;
+  and build the port's ``LabelGrid`` on the scene's device (on the card
+  the colour join and the grid build run there too, on the prefetches'
+  own stream);
 - the 1-NN label transfer runs on a worker thread over the scan's
   device-resident points;
 - the per-frame colours of ``combined_pointcloud.ply`` come from a copied
@@ -42,11 +44,11 @@ import torch
 
 from ipcgen_tpu_torch.containers.sim_frame import S3DISSimFrame
 from ipcgen_tpu_torch.io.ply import read_point_cloud, write_labeled_ply, write_point_cloud
-from ipcgen_tpu_torch.ops.grid_nn import LabelGrid
+from ipcgen_tpu_torch.ops.grid_nn import LabelGrid, builds_on_card
 from ipcgen_tpu_torch.ops.knn import nearest_neighbor_indices
 from ipcgen_tpu_torch.semantic.annotations import S3DISAnnotationLoader, S3DISColorEncoder
 from ipcgen_tpu_torch.utils import native
-from ipcgen_tpu_torch.utils.device import device_or_card
+from ipcgen_tpu_torch.utils.device import as_device, device_or_card, upload
 from ipcgen_tpu_torch.utils.json_utils import NumpyEncoder
 from ipcgen_tpu_torch.utils.profiling import Recorder
 from ipcgen_tpu_torch.utils.viridis import viridis_rgb
@@ -80,6 +82,50 @@ def _exact_coord_join(queries: np.ndarray, refs: np.ndarray):
     # Verify coordinates, not just the hash: a collision whose first
     # sorted slot holds different coordinates simply falls back to the NN.
     matched = (rh_sorted[pos] == qh) & np.all(r[cand] == q, axis=1)
+    return cand, matched
+
+
+def _coord_keys(points, device) -> torch.Tensor:
+    """``round(points * 1e4)`` as (N, 3) int64 on ``device``, as
+    ``_exact_coord_join`` rounds them: the float64 rows go up and are
+    rounded a column at a time, so that only the keys stay."""
+    x = upload(np.asarray(points, np.float64), device)
+    keys = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    for c in range(3):
+        keys[:, c] = (x[:, c] * 1e4).round_()
+    return keys
+
+
+def _coord_hash(keys: torch.Tensor) -> torch.Tensor:
+    """``_exact_coord_join``'s int64 wrapping hash of its keys."""
+    return (keys[:, 0] * 73856093) ^ (keys[:, 1] * 19349663) ^ (keys[:, 2] * 83492791)
+
+
+def _exact_coord_join_tensor(queries: np.ndarray, refs: np.ndarray, device):
+    """``_exact_coord_join`` of two host arrays with torch ops on ``device``:
+    the same float64 rounding, int64 wrapping hash, stable sort, left search
+    and coordinate check, so the same (cand, matched), here as tensors on
+    ``device``: among equal hashes the first sorted position wins, as it
+    does there."""
+    n, m = len(queries), len(refs)
+    if n == 0 or m == 0:
+        return (torch.zeros(n, dtype=torch.int64, device=device),
+                torch.zeros(n, dtype=torch.bool, device=device))
+    return _coord_join_keys(_coord_keys(queries, device), _coord_keys(refs, device))
+
+
+def _coord_join_keys(q: torch.Tensor, r: torch.Tensor):
+    """The join of ``_exact_coord_join_tensor`` from the (N, 3) and (M, 3)
+    int64 keys of ``_coord_keys`` (M > 0)."""
+    rh_sorted, order = torch.sort(_coord_hash(r), stable=True)
+    qh = _coord_hash(q)
+    pos = torch.searchsorted(rh_sorted, qh).clamp_(max=len(r) - 1)
+    matched = rh_sorted[pos] == qh
+    del rh_sorted, qh  # each temporary goes as soon as it is read
+    cand = order[pos]
+    del order, pos
+    for c in range(3):  # a column at a time: no (N, 3) gather
+        matched &= r[cand, c] == q[:, c]
     return cand, matched
 
 
@@ -128,9 +174,10 @@ def _load_room_original_data(s3dis_data_root, area, room):
 def _host_nn_small(queries: np.ndarray, refs: np.ndarray) -> np.ndarray:
     """Chunked numpy brute-force 1-NN for SMALL query sets.
 
-    Used by the background label prefetch so its rare unmatched-row
-    fallback never dispatches device work concurrently with the scan it is
-    meant to hide behind."""
+    Used by the background label prefetch for its rare unmatched rows, which
+    cost less on the host than a search on the device.  The prefetch's
+    device work (the colour join and the grid build on the card) runs on its
+    own stream, so it does not queue in front of the scan."""
     out = np.empty(len(queries), np.int64)
     r = np.asarray(refs, np.float32)
     for s in range(0, len(queries), 256):
@@ -145,9 +192,11 @@ def load_room_label_data(s3dis_data_root, area, room, host_only_nn=False,
     """Annotation cloud + exact-join colour match against the raw cloud.
 
     Returns (points, colors, sem, ins), or four Nones when the scene has no
-    annotation data.  Unmatched annotation rows take the colour of their
-    nearest raw point (host brute force for a small remainder when
-    ``host_only_nn``, else the exact 1-NN on ``device``).  ``rec`` (a
+    annotation data.  The join runs on ``device`` when it is a CUDA device
+    (``_exact_coord_join_tensor``), in numpy elsewhere.  Unmatched annotation
+    rows take the colour of their nearest raw point (host brute force for a
+    small remainder when ``host_only_nn``, else the exact 1-NN on
+    ``device``).  ``rec`` (a
     ``Recorder``) takes the prefetch's spans: the parses, the stack and the
     colour join (``label_bg_*``).
     """
@@ -182,7 +231,11 @@ def load_room_label_data(s3dis_data_root, area, room, host_only_nn=False,
         return points, colors, semantic_labels, instance_labels
     with rec.span("label_bg_color_join"):
         oc = np.asarray(original_colors)
-        idx_exact, matched = _exact_coord_join(points, original_points)
+        if builds_on_card(device):
+            idx_exact, matched = (t.cpu().numpy() for t in _exact_coord_join_tensor(
+                points, original_points, device))
+        else:
+            idx_exact, matched = _exact_coord_join(points, original_points)
         if matched.all():
             colors = oc[idx_exact]
         else:
@@ -198,12 +251,30 @@ def load_room_label_data(s3dis_data_root, area, room, host_only_nn=False,
     return points, colors, semantic_labels, instance_labels
 
 
+_prefetch_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _prefetch_stream(device: torch.device):
+    """The label prefetches' own CUDA stream on ``device`` (one a card, so
+    the caching allocator keeps one pool of their temporaries), or None off
+    the card."""
+    if device.type != "cuda":
+        return None
+    device = as_device(device)
+    if device not in _prefetch_streams:
+        _prefetch_streams[device] = torch.cuda.Stream(device)
+    return _prefetch_streams[device]
+
+
 class LabelPrefetch:
     """Background load of a room's label data and its ``LabelGrid``.
 
     Started when the scene loads, so the annotation parse and the grid build
-    hide behind trajectory planning and the scan.  An exception in the
-    worker is re-raised by ``join``.  ``rec`` holds the thread's spans,
+    hide behind trajectory planning and the scan.  On the card the colour
+    join and the grid build run on the prefetches' own stream, so they do
+    not queue in front of the scan; ``join`` makes the caller's stream wait
+    for that work and hands the grid's tensors over to it.  An exception in
+    the worker is re-raised by ``join``.  ``rec`` holds the thread's spans,
     ``label_load_bg`` around all of it with its CPU seconds as
     ``label_load_bg_cpu``; the scene absorbs it after the join.
     ``start_ns`` is when it started (``time.time_ns``).
@@ -215,6 +286,8 @@ class LabelPrefetch:
         self.grid: Optional[LabelGrid] = None
         self._data = (None, None, None, None)
         self._error: Optional[BaseException] = None
+        self._stream = _prefetch_stream(torch.device(device))
+        self._done = None  # the stream's event after the last of the work
         self._thread = threading.Thread(
             target=self._work, args=(s3dis_data_root, area, room, device),
             name="label_prefetch", daemon=True,
@@ -222,7 +295,8 @@ class LabelPrefetch:
         self._thread.start()
 
     def _work(self, s3dis_data_root, area, room, device):
-        with self.rec.span("label_load_bg", cpu="label_load_bg_cpu"):
+        with self.rec.span("label_load_bg", cpu="label_load_bg_cpu"), \
+                torch.cuda.stream(self._stream):  # no-op off the card
             try:
                 self._data = load_room_label_data(
                     s3dis_data_root, area, room, host_only_nn=True,
@@ -232,14 +306,25 @@ class LabelPrefetch:
                     with self.rec.span("label_bg_grid_build"):
                         self.grid = LabelGrid(np.asarray(self._data[0], np.float32),
                                               device=device)
+                        if self._stream is not None:  # the span covers the build
+                            self._stream.synchronize()
+                if self._stream is not None:
+                    self._done = self._stream.record_event()
             except Exception as e:  # handed to join(), which re-raises it
                 self._error = e
 
     def join(self):
-        """Block until loaded; returns (points, colors, sem, ins)."""
+        """Block until loaded; returns (points, colors, sem, ins).  On the
+        card the calling thread's stream waits for the prefetch's stream,
+        and the grid's tensors are marked as used on it."""
         self.wait()
         if self._error is not None:
             raise self._error
+        if self._done is not None:
+            consumer = torch.cuda.current_stream(self._stream.device)
+            consumer.wait_event(self._done)
+            if self.grid is not None:
+                self.grid.record_stream(consumer)
         return self._data
 
     def wait(self) -> None:
@@ -586,7 +671,9 @@ class S3DISSimScene:
         """Populate ``_s3dis_cache`` from the prefetch or a direct load (an
         empty dict when the scene has no annotation data).  Returns False
         only when the scene has no annotation data.  Off the critical path
-        the wait is ``label_bg_join_wait`` and ``label_load`` is 0."""
+        the wait is ``label_bg_join_wait`` and ``label_load`` is 0.  The
+        counter ``label_device_build`` is 1 where the card built the label
+        grid, 0 where the host did."""
         with self._label_lock:
             if self._s3dis_cache is None:
                 grid = None
@@ -605,6 +692,7 @@ class S3DISSimScene:
                 if points is not None and len(points):
                     if grid is None:
                         grid = LabelGrid(np.asarray(points, np.float32), device=self.device)
+                    self.rec.count("label_device_build", float(grid.device_build))
                     self._s3dis_cache = {
                         "points": points, "colors": colors, "labels": labels,
                         "instances": instances, "grid": grid,

@@ -44,7 +44,7 @@ from ipcgen_tpu_torch.ops.knn import (
     nearest_neighbor_tensor,
     select_smallest,
 )
-from ipcgen_tpu_torch.utils.device import device_or_card, sync
+from ipcgen_tpu_torch.utils.device import device_or_card, sync, upload
 from ipcgen_tpu_torch.utils.profiling import Recorder
 
 # Spatial-hash primes; the hash wraps in uint32 identically on host and device.
@@ -71,13 +71,38 @@ def _occupancy_counts(refs: np.ndarray, lo: np.ndarray, h: float) -> np.ndarray:
     return counts
 
 
+def _cell_hash(cell_of) -> torch.Tensor:
+    """The int64 spatial hash of the cells ``cell_of(axis)`` gives, an axis
+    at a time so that no (N, 3) cell array is held; its low 32 bits are the
+    uint32 hash's."""
+    return (cell_of(0) * _P1) ^ (cell_of(1) * _P2) ^ (cell_of(2) * _P3)
+
+
+def _occupancy_counts_tensor(refs: torch.Tensor, lo: torch.Tensor, h: float) -> np.ndarray:
+    """``_occupancy_counts`` of references on their device, sorted.  Only
+    the histogram of the counts comes back; the counts' mean and
+    percentile depend on their multiset alone."""
+    # A device scalar: torch divides by a host scalar through its reciprocal.
+    h_t = torch.tensor(h, dtype=torch.float32, device=refs.device)
+    lin = _cell_hash(lambda c: torch.floor((refs[:, c] - lo[c]) / h_t).long())
+    hist = torch.bincount(torch.unique(lin, return_counts=True)[1]).cpu().numpy()
+    return np.repeat(np.arange(len(hist), dtype=np.int64), hist)
+
+
 def _choose_cell_size(refs: np.ndarray, cap: int) -> float:
     """Cell size targeting ~cap/4 refs per occupied cell AND p99 <= cap."""
     lo = refs.min(axis=0)
     extent = np.maximum(refs.max(axis=0) - lo, 1e-6)
-    h = float(max(np.cbrt(extent.prod() / max(len(refs), 1)) * 4.0, 0.02))
+    return _shrink_cell_size(extent, len(refs), cap,
+                             lambda h: _occupancy_counts(refs, lo, h))
+
+
+def _shrink_cell_size(extent: np.ndarray, n: int, cap: int, counts_at) -> float:
+    """``_choose_cell_size``'s rule over ``counts_at(h)``, the occupied
+    cells' counts at cell size ``h``."""
+    h = float(max(np.cbrt(extent.prod() / max(n, 1)) * 4.0, 0.02))
     for _ in range(6):
-        counts = _occupancy_counts(refs, lo, h)
+        counts = counts_at(h)
         mean_occ = counts.mean()
         p99 = float(np.percentile(counts, 99))
         if mean_occ <= cap / 2.0 and p99 <= cap:
@@ -130,6 +155,56 @@ def _build_slab_host(refs: np.ndarray, cell_size: float, cap: int, t_bits: int):
     )
 
 
+def _bounds_tensor(refs: torch.Tensor):
+    """(lo on the device, extent on the host): ``_build_slab_host``'s
+    bounds, the extent computed by the same numpy expression."""
+    lo_t = refs.amin(dim=0)
+    return lo_t, np.maximum(refs.amax(dim=0).cpu().numpy() - lo_t.cpu().numpy(), 1e-6)
+
+
+def _build_slab_tensor(refs: torch.Tensor, lo_t: torch.Tensor, extent: np.ndarray,
+                       cell_size: float, cap: int, t_bits: int):
+    """``_build_slab_host`` with torch ops on the references' device: the
+    same uint32 bucket hash (its low bits agree in int64), a stable sort by
+    bucket, the true counts and the 1e7 fill, so table, counts and slot ids
+    are bit for bit the host build's.  Returns its tuple with tensors for
+    the tables and ``lo``."""
+    device = refs.device
+    inv_h = 1.0 / cell_size
+    dims = np.maximum(np.ceil(extent * inv_h).astype(np.int64) + 1, 1)
+    # numpy multiplies float32 rows by float32(inv_h); so does a float32 tensor.
+    inv_h_t = torch.tensor(inv_h, dtype=torch.float32, device=device)
+    t_size = 1 << t_bits
+    bucket = _cell_hash(lambda c: torch.floor((refs[:, c] - lo_t[c]) * inv_h_t).long()
+                        .clamp_(0, int(dims[c]) - 1)) & (t_size - 1)
+    counts = torch.bincount(bucket, minlength=t_size)
+    b_sorted, order = torch.sort(bucket, stable=True)
+    del bucket  # each temporary goes before the tables are allocated
+    slot = torch.arange(len(refs), device=device).sub_((torch.cumsum(counts, 0) - counts)[b_sorted])
+    keep = slot < cap
+    flat = b_sorted.mul_(cap).add_(slot)[keep]
+    kept = order[keep]
+    del b_sorted, order, slot, keep
+    table = torch.full((t_size * cap, 3), 1e7, dtype=torch.float32, device=device)
+    table[flat] = refs[kept]
+    slot_ids = torch.zeros(t_size * cap, dtype=torch.int32, device=device)
+    slot_ids[flat] = kept.int()
+    return (
+        table.view(t_size, cap, 3),
+        counts.clamp_(max=2**31 - 1).int(),
+        slot_ids,
+        lo_t,
+        float(inv_h),
+        dims,
+    )
+
+
+def builds_on_card(device) -> bool:
+    """Whether ``LabelGrid`` builds its levels on ``device`` with torch ops
+    (a CUDA device); elsewhere numpy builds them on the host."""
+    return torch.device(device).type == "cuda"
+
+
 _OFFS = [[ox, oy, oz] for ox in (0, 1) for oy in (0, 1) for oz in (0, 1)]
 
 
@@ -178,6 +253,13 @@ class LabelGrid:
     transfer.  Levels: L0 cell h, cap 24; L1 cell 4h, cap 384; residue: the
     exact 1-NN against ``refs_dev``.  Tables and ``refs_dev``, one copy of
     the references, live on ``device``.
+
+    The build follows the device alone (``builds_on_card``): on a CUDA
+    device the references go up once, as ``refs_dev``, and the cell size
+    and both levels are built there with torch ops (``_build_slab_tensor``);
+    elsewhere numpy builds them (``_build_slab_host``) and the tables go up.
+    Both builds give the same ``h0``, tables, counts and slot ids;
+    ``device_build`` says which one ran.
     """
 
     Q_BLOCK = 32768
@@ -188,25 +270,47 @@ class LabelGrid:
         refs = np.asarray(refs, dtype=np.float32)
         self.n_refs = len(refs)
         self.device = torch.device(device)
+        self.device_build = builds_on_card(self.device)
         if self.n_refs == 0:
             return
-        self.h0 = _choose_cell_size(refs, cap0)
         t_bits0 = min(max(int(2 * self.n_refs - 1).bit_length(), 10), 18)
         t_bits1 = min(max(t_bits0 - 4, 10), 14)
-        self._lvl = []
-        for h, cap, t_bits in ((self.h0, cap0, t_bits0),
-                               (4.0 * self.h0, cap1, t_bits1)):
-            tab, cnt, sid, lo, invh, dims = _build_slab_host(refs, h, cap, t_bits)
-            self._lvl.append(dict(
-                table=torch.from_numpy(tab).to(self.device),
-                counts=torch.from_numpy(cnt).to(self.device),
-                slot_ids=torch.from_numpy(sid).to(self.device),
-                lo=torch.from_numpy(lo).to(self.device),
-                inv_h=torch.tensor(invh, dtype=torch.float32, device=self.device),
-                dims=torch.from_numpy(dims.astype(np.int32)).to(self.device),
-                cap=int(cap),
-            ))
-        self.refs_dev = torch.from_numpy(np.ascontiguousarray(refs)).to(self.device)
+        caps = (cap0, cap1)
+
+        def levels(h0):  # (cell size, cap, table bits) of L0 and L1
+            return zip((h0, 4.0 * h0), caps, (t_bits0, t_bits1))
+
+        if self.device_build:
+            refs_t = self.refs_dev = upload(refs, self.device)
+            lo_t, extent = _bounds_tensor(refs_t)
+            self.h0 = _shrink_cell_size(extent, self.n_refs, cap0,
+                                        lambda h: _occupancy_counts_tensor(refs_t, lo_t, h))
+            slabs = [_build_slab_tensor(refs_t, lo_t, extent, *lvl)
+                     for lvl in levels(self.h0)]
+        else:
+            self.h0 = _choose_cell_size(refs, cap0)
+            slabs = [_build_slab_host(refs, *lvl) for lvl in levels(self.h0)]
+            self.refs_dev = torch.from_numpy(np.ascontiguousarray(refs)).to(self.device)
+        # Host arrays go up here; tensors built on the device stay there.
+        self._lvl = [dict(
+            table=torch.as_tensor(tab).to(self.device),
+            counts=torch.as_tensor(cnt).to(self.device),
+            slot_ids=torch.as_tensor(sid).to(self.device),
+            lo=torch.as_tensor(lo).to(self.device),
+            inv_h=torch.tensor(invh, dtype=torch.float32, device=self.device),
+            dims=torch.from_numpy(dims.astype(np.int32)).to(self.device),
+            cap=int(cap),
+        ) for (tab, cnt, sid, lo, invh, dims), cap in zip(slabs, caps)]
+
+    def record_stream(self, stream) -> None:
+        """Mark every tensor the queries read as used on ``stream``, so that
+        the caching allocator keeps tensors built on another stream until
+        ``stream``'s work on them is done."""
+        if self.n_refs == 0:
+            return
+        for t in [self.refs_dev] + [v for p in self._lvl for v in p.values()
+                                    if isinstance(v, torch.Tensor)]:
+            t.record_stream(stream)
 
     def _run_level(self, q: torch.Tensor, lvl: int, q_block: int) -> torch.Tensor:
         p = self._lvl[lvl]

@@ -24,6 +24,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ipcgen_tpu_torch.utils.device import upload
+
 # A padded triangle parked far outside any scene so it can never be hit.
 _PAD_COORD = 1e7
 
@@ -235,11 +237,7 @@ def _mesh_tensors(vertices, triangles, device: torch.device):
     if lo < 0 or hi >= len(vertices):
         raise ValueError(f"build_scene_asset: triangle indices span [{lo}, {hi}], "
                          f"outside [0, {len(vertices)})")
-    triangles = np.ascontiguousarray(triangles, dtype=np.int32)
-    if device.type != "cuda":
-        return torch.from_numpy(vertices).to(device), torch.from_numpy(triangles).to(device)
-    return tuple(torch.from_numpy(a).pin_memory().to(device, non_blocking=True)
-                 for a in (vertices, triangles))
+    return upload(vertices, device), upload(np.asarray(triangles, dtype=np.int32), device)
 
 
 def _block_counts(n_tris: int, block_size: int, super_factor: int, bucket: bool):

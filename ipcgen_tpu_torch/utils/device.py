@@ -44,6 +44,15 @@ def sync(x=None) -> None:
         torch.cuda.synchronize(device)
 
 
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``: through pinned memory and without the
+    host waiting on the copy for a CUDA device, a plain copy elsewhere."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def to_host(x) -> np.ndarray:
     """numpy copy of a tensor (or passthrough for array-likes)."""
     if isinstance(x, torch.Tensor):

@@ -1,5 +1,7 @@
 """Label transfer: the port's ``LabelGrid`` and exact 1-NN against the JAX
-package's, on the golden room cloud (tests/fixtures/golden_room).
+package's, on the golden room cloud (tests/fixtures/golden_room).  The grid
+and the colour join are held to it by both of the port's builds: numpy (the
+host's) and torch ops (the card's, run here on CPU tensors).
 
 Both grids are exact nearest-neighbour searches, so the indices must be
 IDENTICAL except where the two candidates are equally near: a query whose
@@ -18,7 +20,9 @@ torch.set_num_threads(2)  # six pytest-xdist workers share the CPU cores
 
 from ipcgen_tpu.ops.grid_nn import LabelGrid as JaxLabelGrid  # noqa: E402
 from ipcgen_tpu.semantic.annotations import S3DISAnnotationLoader  # noqa: E402
+from ipcgen_tpu_torch.containers import sim_scene  # noqa: E402
 from ipcgen_tpu_torch.containers.sim_scene import load_room_label_data  # noqa: E402
+from ipcgen_tpu_torch.ops import grid_nn  # noqa: E402
 from ipcgen_tpu_torch.ops.grid_nn import LabelGrid  # noqa: E402
 from ipcgen_tpu_torch.ops.knn import nearest_neighbor_indices  # noqa: E402
 from ipcgen_tpu_torch.utils.profiling import Recorder  # noqa: E402
@@ -33,6 +37,16 @@ def golden_cloud():
     pts, _, _ = loader.create_labeled_pointcloud_with_instances(
         loader.load_room_annotations("Area_1", "office_1"))
     return np.asarray(pts, np.float32)
+
+
+@pytest.fixture(params=["numpy", "torch"])
+def build(request, monkeypatch):
+    """The port's build of the grid and the colour join: "numpy" as off the
+    card, "torch" the card's route on CPU tensors."""
+    if request.param == "torch":
+        for module in (grid_nn, sim_scene):
+            monkeypatch.setattr(module, "builds_on_card", lambda device: True)
+    return request.param
 
 
 def queries_for(refs, seed=0):
@@ -55,12 +69,14 @@ def assert_same_up_to_ties(q, refs, got, want):
     return len(diff)
 
 
-def test_label_grid_matches_jax(golden_cloud):
+def test_label_grid_matches_jax(golden_cloud, build):
     refs = golden_cloud
     q = queries_for(refs)
     want = JaxLabelGrid(refs).query(q)
     rec = Recorder()
-    got = LabelGrid(refs, device="cpu").query(torch.from_numpy(q), rec=rec)
+    grid = LabelGrid(refs, device="cpu")
+    assert grid.device_build == (build == "torch")
+    got = grid.query(torch.from_numpy(q), rec=rec)
     assert got.dtype == np.int32 and got.shape == want.shape
     n_diff = assert_same_up_to_ties(q, refs, got, want)
     assert n_diff <= 0.001 * len(q)
@@ -86,7 +102,23 @@ def test_exact_nn_matches_brute_force(golden_cloud):
     assert_same_up_to_ties(q, refs, got, d.argmin(1))
 
 
-def test_room_label_data_matches_jax():
+def test_coord_join_matches_jax():
+    """The colour join with torch ops (the card's) against the JAX package's
+    ``_exact_coord_join`` on the golden room's annotation and raw clouds."""
+    from ipcgen_tpu.containers.sim_scene import _exact_coord_join as jax_join
+
+    loader = S3DISAnnotationLoader(str(GOLDEN), verbose=False)
+    points, _, _ = loader.create_labeled_pointcloud_with_instances(
+        loader.load_room_annotations("Area_1", "office_1"))
+    raw, _ = sim_scene._load_room_original_data(str(GOLDEN), "Area_1", "office_1")
+    want_idx, want_m = jax_join(points, raw)
+    got_idx, got_m = sim_scene._exact_coord_join_tensor(points, raw, "cpu")
+    assert want_m.all()
+    np.testing.assert_array_equal(got_idx.numpy(), want_idx)
+    np.testing.assert_array_equal(got_m.numpy(), want_m)
+
+
+def test_room_label_data_matches_jax(build):
     from ipcgen_tpu.containers.sim_scene import load_room_label_data as jax_load
 
     want = jax_load(str(GOLDEN), "Area_1", "office_1")
